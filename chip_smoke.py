@@ -4,8 +4,9 @@
 
 Builds the port's CUDA kernels from ``tetris_piclim_tpu_torch/csrc`` (one
 nvcc per source, all at once), holds each kernel against its plain PyTorch
-version on the card, and drives the port's two paths through the entry
-points a user calls:
+version on the card (scripted draws, the kernels' own Philox draws word for
+word against ``philox_draws``, and batch sizes that fill no tile), and
+drives the port's two paths through the entry points a user calls:
 
 1. the random-policy rollout at the benchmark shape (N=8192 envs, K=1024
    steps per launch, L=2/M=20, a 256-row bank from the device carver);
@@ -52,6 +53,8 @@ DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper), at 700 W
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12            # CUDA cores, no tensor cores
+TF32_FLOP_PER_S = 495e12           # tensor cores, dense
+ACTOR_TF32_PASSES = 3              # the actor's products are 3xTF32
 INT32_OP_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM at boost clock
 # integer operations one env step needs at least (the plain version's word
 # ops: 10 ctz + 10 sub + 10 min + 20 lock + 9 and + ~30 clear/status/reset)
@@ -130,22 +133,40 @@ def phase_build() -> None:
 
 
 def phase_rollout_check(bank: ConfigBank) -> dict:
-    print("rollout kernel vs rollout_reference (scripted, N=8192, K=64)")
     rng = np.random.default_rng(0)
-    n, K, L, M = 8192, 64, 2, 20
-    state = make_state(rng, n, L, M)
-    g = lambda lo, hi: torch.as_tensor(  # noqa: E731
-        rng.integers(lo, hi, (K, n)), dtype=torch.int32, device=DEV)
-    actions = (g(0, 8), g(-3, 13), g(0, bank.capacity))
-    ker = rollout_ops.rollout_fused(state, bank.cols, bank.pieces, K,
-                                    actions=actions)
-    ref = rollout_ops.rollout_reference(state, bank.cols, bank.pieces, K,
-                                        actions=actions)
-    sync()
-    check(states_equal(ker[0], ref[0]), "final state word-identical")
-    check(int(ker[1]) == int(ref[1]) and int(ker[2]) == int(ref[2]),
-          f"episodes {int(ker[1])} and wins {int(ker[2])} equal")
-    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(ker[0], ref[0]))
+    K, L, M = 64, 2, 20
+    err = 0
+
+    def hold(n: int, what: str, seed=None) -> None:
+        """Kernel vs plain version on n envs: scripted actions, or with a
+        seed the kernel's Philox mode against philox_draws."""
+        nonlocal err
+        print(f"rollout kernel vs rollout_reference ({what}, N={n}, K={K})")
+        state = make_state(rng, n, L, M)
+        if seed is None:
+            g = lambda lo, hi: torch.as_tensor(  # noqa: E731
+                rng.integers(lo, hi, (K, n)), dtype=torch.int32, device=DEV)
+            actions = (g(0, 8), g(-3, 13), g(0, bank.capacity))
+            ker = rollout_ops.rollout_fused(state, bank.cols, bank.pieces, K,
+                                            actions=actions)
+        else:
+            actions = rollout_ops.philox_draws(
+                seed, n, K, bank.capacity, DEV).actions
+            ker = rollout_ops.rollout_fused(state, bank.cols, bank.pieces, K,
+                                            seed=seed)
+        ref = rollout_ops.rollout_reference(state, bank.cols, bank.pieces, K,
+                                            actions=actions)
+        sync()
+        check(states_equal(ker[0], ref[0]), "final state word-identical")
+        check(int(ker[1]) == int(ref[1]) and int(ker[2]) == int(ref[2]),
+              f"episodes {int(ker[1])} and wins {int(ker[2])} equal")
+        check(int(ker[1]) > n // 8, "episodes end and reset in this check")
+        err = max([err] + [int((x.long() - y.long()).abs().max())
+                           for x, y in zip(ker[0], ref[0])])
+
+    hold(8192, "scripted")
+    hold(8192, "Philox mode against philox_draws", seed=12345)
+    hold(8191, "scripted, ragged N")
     return {"max_abs_err": float(err)}
 
 
@@ -251,6 +272,40 @@ def phase_actor_check(bank: ConfigBank) -> dict:
         check(int(ker[2]) == int(ref[2]) and int(ker[3]) == int(ref[3]),
               f"episodes {int(ker[2])} and wins {int(ker[3])} equal")
 
+        print(f"actor kernel Philox mode vs actor_reference fed by "
+              f"philox_draws, head {head}, exact weights")
+        seed = 1000 + head
+        ker = actor_ops.actor_rollout_fused(state, net, *window, 0, seed,
+                                            return_q=True, **eps)
+        ref = actor_ops.actor_reference(
+            state, net, *window, 0, return_q=True, **eps,
+            draws=rollout_ops.philox_draws(seed, n, K, 256, DEV).draws)
+        sync()
+        check(states_equal(ker[0], ref[0]), "final state bit-identical")
+        check(all(torch.equal(x, y) for x, y in zip(ker[1], ref[1])),
+              "every transition field bit-identical")
+        check(torch.equal(ker[4], ref[4]), "Q bit-identical")
+        check(int(ker[2]) == int(ref[2]) and int(ker[3]) == int(ref[3]),
+              f"episodes {int(ker[2])} and wins {int(ker[3])} equal")
+
+        n_rag = 4001
+        print(f"actor kernel vs actor_reference, head {head}, exact weights, "
+              f"ragged N={n_rag}")
+        st_rag = make_state(rng, n_rag, L, M)
+        st_rag = st_rag._replace(cols=st_rag.cols & ~0xFF)
+        dr_rag = actor_draws(rng, K, n_rag, 256)
+        ker = actor_ops.actor_rollout_fused(st_rag, net, *window, 0, 0,
+                                            draws=dr_rag, return_q=True, **eps)
+        ref = actor_ops.actor_reference(st_rag, net, *window, 0, draws=dr_rag,
+                                        return_q=True, **eps)
+        sync()
+        check(states_equal(ker[0], ref[0]), "final state bit-identical")
+        check(all(torch.equal(x, y) for x, y in zip(ker[1], ref[1])),
+              "every transition field bit-identical")
+        check(torch.equal(ker[4], ref[4]), "Q bit-identical")
+        check(int(ker[2]) == int(ref[2]) and int(ker[3]) == int(ref[3]),
+              f"episodes {int(ker[2])} and wins {int(ker[3])} equal")
+
         print(f"actor kernel vs actor_reference, head {head}, lecun weights")
         net = QNetwork(joint=joint,
                        generator=torch.Generator().manual_seed(head)).to(DEV)
@@ -288,23 +343,33 @@ def phase_actor_check(bank: ConfigBank) -> dict:
         check(c.min() > 0.92 and c.max() < 1.08,
               f"random {name} uniform over {lanes} (ratios {c.min():.3f}..{c.max():.3f})")
 
-    # times at the trainer's shape (Philox draws, head 14, 256-row window)
+    # times at the trainer's shape (Philox draws, head 14, 256-row window):
+    # the wrapper's whole call, as the trainer pays it (input checks and
+    # output buffers on the host; it prepares no weights), and the kernel
+    # launch alone on buffers prepared before
     state = make_state(np.random.default_rng(4), n, L, M)
     kw = dict(eps_start=0.9, eps_end=0.05, eps_decay=1000.0, n_steps=K)
     ms = cuda_ms(lambda: actor_ops.actor_rollout_fused(
         state, net, *window, 0, 1, **kw), reps=20)
+    launch, _ = actor_ops.prepare_actor_launch(state, net, *window, 0, 1, **kw)
+    launch_ms = cuda_ms(launch, reps=50)
     gen = torch.Generator(device=DEV).manual_seed(0)
     plain_ms = cuda_ms(lambda: actor_ops.actor_reference(
         state, net, *window, 0, generator=gen, **kw), reps=5)
     flops = 2 * (217 * 128 + 3 * 128 * 128 + 128 * 14) * n * K
-    ops_ms = max(flops / FP32_FLOP_PER_S,
+    fp32_ms = flops / FP32_FLOP_PER_S * 1e3
+    ops_ms = max(ACTOR_TF32_PASSES * flops / TF32_FLOP_PER_S,
                  n * K * STEP_INT_OPS / INT32_OP_PER_S) * 1e3
     p = bank.pieces.shape[1]
     weights = 4 * (217 * 128 + 3 * 128 * 128 + 128 * 14 + 4 * 128 + 14)
     io = n * (2 * (10 * 4 + p + 3 * 4 + 1) + 2 * 4) + K * n * (10 + 10 + 16) * 4
     bytes_ms = (weights + io + 256 * (40 + p)) / HBM_BYTES_PER_S * 1e3
-    print(f"  actor kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (N={n}, K={K})")
-    return {"max_abs_err": q_err, "ms": ms, "plain_ms": plain_ms,
+    print(f"  actor kernel {ms:.3f} ms per wrapper call, {launch_ms:.3f} ms per "
+          f"launch alone, plain {plain_ms:.3f} ms (N={n}, K={K}); bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms ({ACTOR_TF32_PASSES} TF32 passes on the "
+          f"tensor cores), {fp32_ms:.4f} ms on the FP32 pipes")
+    return {"max_abs_err": q_err, "ms": ms, "launch_ms": launch_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 

@@ -37,7 +37,7 @@ def _state(rng, n, L, M, dev):
     return bb.make_state_batch(boards, pieces, L, M)
 
 
-@pytest.mark.parametrize("n", [100, 1024])
+@pytest.mark.parametrize("n", [100, 1024, 1023])
 def test_rollout_kernel_matches_plain(dev, n):
     rng = np.random.default_rng(n)
     L, M, K = 2, 12, 37
@@ -68,4 +68,39 @@ def test_actor_kernel_matches_plain(dev, joint):
     ref = actor_ops.actor_reference(state, net, bank.cols, bank.pieces, 0, **kw)
     torch.testing.assert_close(ker[4], ref[4], rtol=1e-5, atol=1e-5)
     assert torch.equal(ker[1].rot, ref[1].rot) and torch.equal(ker[1].col, ref[1].col)
+    assert all(torch.equal(a, b) for a, b in zip(ker[0], ref[0]))
+
+
+@pytest.mark.parametrize("n", [1024, 1001])
+def test_rollout_kernel_philox_mode_matches_plain(dev, n):
+    """Random mode word for word: the plain version scripted with
+    philox_draws. K is not a multiple of the lane split."""
+    rng = np.random.default_rng(n)
+    L, M, K, seed = 2, 12, 37, 99
+    bank = ConfigBank(L, M, capacity=32, seed=0, device=dev).fill_device()
+    state = _state(rng, n, L, M, dev)
+    ker = rollout_ops.rollout_fused(state, bank.cols, bank.pieces, K, seed=seed)
+    ref = rollout_ops.rollout_reference(
+        state, bank.cols, bank.pieces, K,
+        actions=rollout_ops.philox_draws(seed, n, K, 32, dev).actions)
+    assert all(torch.equal(a, b) for a, b in zip(ker[0], ref[0]))
+    assert int(ker[1]) == int(ref[1]) and int(ker[2]) == int(ref[2])
+
+
+@pytest.mark.parametrize("joint,n", [(False, 100), (True, 100), (False, 77)])
+def test_actor_kernel_philox_mode_matches_plain(dev, joint, n):
+    """Random mode: same states, transitions and actions as the plain
+    version scripted with philox_draws (K > 8: two rounds of draws)."""
+    rng = np.random.default_rng(int(joint))
+    L, M, K, seed = 2, 12, 11, 5
+    bank = ConfigBank(L, M, capacity=16, seed=0, device=dev).fill_device()
+    state = _state(rng, n, L, M, dev)
+    net = QNetwork(joint=joint, generator=torch.Generator().manual_seed(0)).to(dev)
+    kw = dict(eps_start=0.3, eps_end=0.3, eps_decay=100.0, n_steps=K, return_q=True)
+    ker = actor_ops.actor_rollout_fused(state, net, bank.cols, bank.pieces, 0, seed, **kw)
+    ref = actor_ops.actor_reference(
+        state, net, bank.cols, bank.pieces, 0, **kw,
+        draws=rollout_ops.philox_draws(seed, n, K, 16, dev).draws)
+    torch.testing.assert_close(ker[4], ref[4], rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(ker[1], ref[1]))
     assert all(torch.equal(a, b) for a, b in zip(ker[0], ref[0]))

@@ -191,10 +191,17 @@ def test_actor_reference_explores_with_given_draws():
 
 
 def test_pack_mlp_params_layout():
+    """The actor kernel's weights are the network's own parameters, in
+    nn.Linear's [out, in] layout, not copies."""
     net = QNetwork(joint=True)
-    w = tactor.pack_mlp_params(net)
+    w = tactor.mlp_params(net)
     assert [tuple(x.shape) for x in w] == [
-        (220, 128), (128,), (128, 128), (128,), (128, 128), (128,),
-        (128, 128), (128,), (128, 40), (40,)]
-    assert not w[0][217:].any()
-    np.testing.assert_array_equal(w[0][:217].numpy(), net.dense[0].weight.detach().t().numpy())
+        (128, 217), (128,), (128, 128), (128,), (128, 128), (128,),
+        (128, 128), (128,), (40, 128), (40,)]
+    own = [p for lay in net.dense for p in (lay.weight, lay.bias)]
+    assert all(x.data_ptr() == p.data_ptr() and not x.requires_grad
+               for x, p in zip(w, own))
+    assert all(x.is_contiguous() and x.dtype == torch.float32 for x in w)
+    net.dense[1] = torch.nn.Linear(128, 64)
+    with pytest.raises(ValueError, match="217 -> 4x128"):
+        tactor.mlp_params(net)

@@ -15,7 +15,9 @@ uniform random (rot, col); finished envs reset to a uniform bank row.
 
 Draws are scripted ``draws=(explore_u, rand_rot, rand_col, reset_idx)``,
 each [K, N] (the verification path), or random: Philox in the kernel, a
-``torch.Generator`` in the plain version.
+``torch.Generator`` in the plain version. ``rollout.philox_draws`` gives the
+kernel's Philox stream as scripted draws, which is how its random mode is
+held against the plain version.
 """
 
 from __future__ import annotations
@@ -23,14 +25,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
+from ..engine import OBS_DIM
 from ..models.qnet import QNetwork, q_ops
 from . import _build
 from . import bitboard as bb
 from .rollout import check_state, new_state_like, scripted
 
-OBS_PAD = 220     # observation rows padded to a multiple of 4 (float4 loads)
 HID = 128
 N_HIDDEN = 4
 T_INT_W = 16      # packed int transition lanes (14 used)
@@ -65,19 +66,25 @@ def epsilon(step: int, eps_start: float, eps_end: float,
         -f(float(step)) / f(eps_decay))
 
 
-def pack_mlp_params(net: QNetwork) -> list[torch.Tensor]:
-    """The kernel's weights: [in, out] float32 matrices and biases, w1
-    zero-padded to OBS_PAD rows (exact-zero terms at the end of each sum)."""
+def mlp_params(net: QNetwork) -> list[torch.Tensor]:
+    """The kernel's weights, ``[w1, b1, ..., w5, b5]``: the network's own
+    float32 parameters in ``nn.Linear``'s [out, in] layout, read in place.
+    Nothing is copied, transposed or padded (the kernel handles layer 1's
+    217-float rows itself), so a call costs no device work."""
     layers = list(net.dense)
-    if len(layers) != N_HIDDEN + 1 or any(
-            lay.out_features != HID for lay in layers[:-1]):
+    widths = [(lay.in_features, lay.out_features) for lay in layers]
+    if widths[:-1] != [(OBS_DIM, HID)] + [(HID, HID)] * (N_HIDDEN - 1) \
+            or widths[-1][0] != HID:
         raise ValueError("the fused actor runs the 217 -> 4x128 -> head MLP")
     out = []
-    for i, lay in enumerate(layers):
-        w = lay.weight.detach().float().t()
-        if i == 0:
-            w = F.pad(w, (0, 0, 0, OBS_PAD - w.shape[0]))
-        out += [w.contiguous(), lay.bias.detach().float().contiguous()]
+    for lay in layers:
+        for p in (lay.weight, lay.bias):
+            p = p.detach()
+            if p.dtype != torch.float32 or not p.is_contiguous() \
+                    or p.data_ptr() % 16:
+                raise ValueError("the fused actor reads contiguous, 16-byte "
+                                 "aligned float32 parameters in place")
+            out.append(p)
     return out
 
 
@@ -159,11 +166,29 @@ def actor_rollout_fused(
             state, net, bank_cols, bank_pieces, global_step,
             eps_start=eps_start, eps_end=eps_end, eps_decay=eps_decay,
             n_steps=n_steps, draws=draws, generator=gen, return_q=return_q)
+    launch, collect = prepare_actor_launch(
+        state, net, bank_cols, bank_pieces, global_step, seed,
+        eps_start=eps_start, eps_end=eps_end, eps_decay=eps_decay,
+        n_steps=n_steps, draws=draws, return_q=return_q)
+    launch()
+    return collect()
+
+
+def prepare_actor_launch(state, net, bank_cols, bank_pieces, global_step, seed,
+                         *, eps_start, eps_end, eps_decay, n_steps, draws=None,
+                         return_q=False):
+    """Validate the inputs of :func:`actor_rollout_fused` for a CUDA state
+    and allocate its outputs. Returns ``(launch, collect)``: ``launch()``
+    enqueues the kernel on the current stream (and counts the launch),
+    ``collect()`` returns what :func:`actor_rollout_fused` returns from the
+    buffers of the last launch. Calling ``launch`` again reruns the kernel
+    on the same buffers (the episode counts accumulate): that is how the
+    kernel is timed without the wrapper's host work."""
     check_state(state, bank_cols, bank_pieces)
     n, p = state.pieces.shape
     bank = bank_cols.shape[0]
     dev = state.cols.device
-    weights = pack_mlp_params(net)
+    weights = mlp_params(net)
     if any(not w.is_cuda for w in weights):
         raise ValueError("the Q-network must live on the GPU with the state")
     explore_u = rand_rot = rand_col = reset_idx = None
@@ -172,7 +197,7 @@ def actor_rollout_fused(
         if tuple(explore_u.shape) != (n_steps, n):
             raise ValueError("explore_u must be float[K, N]")
         rand_rot, rand_col, reset_idx = scripted(
-            draws[1:], n_steps, n, (None, None, bank))
+            draws[1:], n_steps, n, (4, 10, bank))
     head = net.head_dim
     out = new_state_like(state)
     stats = torch.zeros(2, dtype=torch.int32, device=dev)
@@ -183,7 +208,7 @@ def actor_rollout_fused(
              if return_q else None)
     ptr = _build.ptr
     lib = _build.load("actor")
-    rc = lib.actor_launch(
+    args = (
         ptr(state.cols), ptr(state.pieces), ptr(state.cursor),
         ptr(state.lines_cleared), ptr(state.moves_used), ptr(state.status),
         ptr(state.lines_goal), ptr(state.move_limit),
@@ -196,18 +221,28 @@ def actor_rollout_fused(
         ptr(out.cols), ptr(out.pieces), ptr(out.cursor),
         ptr(out.lines_cleared), ptr(out.moves_used), ptr(out.status),
         ptr(stats), ptr(t_cols), ptr(t_ncols), ptr(t_int), ptr(q_out),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(rc, "actor")
-    _build.LAUNCHES["actor"] += 1
-    lane = lambda i: t_int[..., i]  # noqa: E731
-    trans = ActorTransitions(
-        cols=t_cols, n_cols=t_ncols,
-        cur=lane(0), nxt=lane(1), lines_left=lane(2), moves_left=lane(3),
-        rot=lane(4), col=lane(5), lines_delta=lane(6),
-        done=lane(7).bool(), won=lane(8).bool(),
-        n_cur=lane(9), n_nxt=lane(10), n_lines_left=lane(11),
-        n_moves_left=lane(12), n_status=lane(13),
-    )
-    res = (out, trans, stats[0], stats[1])
-    return res + (q_out,) if return_q else res
+
+    def launch() -> None:
+        rc = lib.actor_launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "actor")
+        _build.LAUNCHES["actor"] += 1
+
+    # `args` holds raw addresses: the launcher keeps their tensors alive
+    launch.keep_alive = (state, weights, bank_cols, bank_pieces, explore_u,
+                         rand_rot, rand_col, reset_idx)
+
+    def collect():
+        lane = lambda i: t_int[..., i]  # noqa: E731
+        trans = ActorTransitions(
+            cols=t_cols, n_cols=t_ncols,
+            cur=lane(0), nxt=lane(1), lines_left=lane(2), moves_left=lane(3),
+            rot=lane(4), col=lane(5), lines_delta=lane(6),
+            done=lane(7).bool(), won=lane(8).bool(),
+            n_cur=lane(9), n_nxt=lane(10), n_lines_left=lane(11),
+            n_moves_left=lane(12), n_status=lane(13),
+        )
+        res = (out, trans, stats[0], stats[1])
+        return res + (q_out,) if return_q else res
+
+    return launch, collect

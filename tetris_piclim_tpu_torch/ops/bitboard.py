@@ -82,16 +82,23 @@ def device_tables(device: torch.device) -> _Tables:
 
 @functools.lru_cache(maxsize=None)
 def kernel_tables(device: torch.device) -> torch.Tensor:
-    """int32[28*10 + 7] for the CUDA kernels' shared memory, per
-    ``piece*4 + rot``: colmask[4], rtopo[4], width, height (10 words), then
-    nrot[7]. Columns beyond the width hold 0."""
-    t = np.zeros((28, 10), np.int32)
-    t[:, 0:4] = COLMASK4.reshape(28, 4)
-    t[:, 4:8] = tables.RTOPO.reshape(28, 4)
-    t[:, 8] = tables.WIDTH.reshape(28)
-    t[:, 9] = tables.HEIGHT.reshape(28)
-    flat = np.concatenate([t.reshape(-1), tables.NROT.astype(np.int32)])
-    return torch.as_tensor(flat, device=device)
+    """int32[28 * 2] for the CUDA kernels' shared memory: one word pair per
+    ``piece * 4 + q`` (q = rot & 3) describing rotation ``q mod nrot[piece]``,
+    so the kernels index with ``rot & 3`` and never divide (nrot is 1, 2 or
+    4). Word 0: the 4-row cell mask of piece column c in bits 4c..4c+3 (0
+    beyond the width) and its rtopo in bits 16+4c..16+4c+3. Word 1: the
+    width in bits 0..2 and the row span ``(1 << height) - 1`` in bits 4..7."""
+    t = np.zeros((28, 2), np.int64)
+    for p in range(7):
+        for q in range(4):
+            r = q % int(tables.NROT[p])
+            w, h = int(tables.WIDTH[p, r]), int(tables.HEIGHT[p, r])
+            for c in range(w):
+                t[p * 4 + q, 0] |= int(COLMASK4[p, r, c]) << (4 * c)
+                t[p * 4 + q, 0] |= int(tables.RTOPO[p, r, c]) << (16 + 4 * c)
+            t[p * 4 + q, 1] = w | (((1 << h) - 1) << 4)
+    assert t.max() < 2 ** 31 and COLMASK4.max() < 16 and tables.RTOPO.max() < 16
+    return torch.as_tensor(t.reshape(-1).astype(np.int32), device=device)
 
 
 class PackedState(NamedTuple):

@@ -9,10 +9,14 @@ Actions come from scripted ``actions=(rots, locs, reset_idx)`` streams of
 shape [K, N] (the verification path) or, with ``actions=None``, from random
 draws: in the kernel a counter-based Philox keyed on (seed, env, step), in
 the plain version a ``torch.Generator``. The two give different numbers from
-the same seed; scripted streams are how they are compared.
+the same seed. :func:`philox_draws` is the plain version of the kernels'
+draw stream: scripted with its output, the plain version must reproduce a
+kernel's random mode word for word.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +24,73 @@ from . import _build
 from . import bitboard as bb
 
 MAX_BANK = 65536  # the JAX kernel's 16-bit bank index range
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo32(m: int, x: torch.Tensor):
+    """(high, low) 32-bit words of ``m * x`` for a 32-bit constant ``m`` and
+    32-bit values in an int64 tensor; 16-bit limbs keep every intermediate
+    below 2^49, so int64 never overflows."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    mid = (a >> 16) + b
+    return mid >> 16, (a & 0xFFFF) | ((mid & 0xFFFF) << 16)
+
+
+def philox4x32_10(counter, key):
+    """Philox-4x32-10 (Salmon et al., SC'11) in int64 arithmetic masked to
+    32 bits. ``counter``: four int64 tensors of 32-bit words (broadcast
+    together); ``key``: two ints. Returns the four output words as int64
+    tensors. The plain version of ``tetris::philox4x32_10`` in
+    ``csrc/env_step.cuh``."""
+    x, y, z, w = torch.broadcast_tensors(*counter)
+    k0, k1 = key[0] & _M32, key[1] & _M32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, x)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, z)
+        x, y, z, w = hi1 ^ y ^ k0, lo1, hi0 ^ w ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _M32, (k1 + _PHILOX_W1) & _M32
+    return x, y, z, w
+
+
+class PhiloxDraws(NamedTuple):
+    """The kernels' draws for K steps of N envs, each [K, N]."""
+    explore_u: torch.Tensor   # float32 in [0, 1), 24 bits (the actor only)
+    rot: torch.Tensor         # int32 in [0, 4)
+    col: torch.Tensor         # int32 in [0, 10)
+    reset_idx: torch.Tensor   # int32 in [0, bank)
+
+    @property
+    def actions(self):
+        """The rollout's ``actions=`` streams."""
+        return self.rot, self.col, self.reset_idx
+
+    @property
+    def draws(self):
+        """The actor's ``draws=`` streams."""
+        return tuple(self)
+
+
+def philox_draws(seed: int, n: int, n_steps: int, bank: int,
+                 device=None) -> PhiloxDraws:
+    """The draws the CUDA kernels make in random mode: for env e and step k
+    the Philox block of counter (e, k, 0, 0) under key (seed, 0); word x
+    gives the explore draw ``(x >> 8) * 2^-24``, word y the rotation
+    ``(y * 4) >> 32``, word z the column ``(z * 10) >> 32`` and word w the
+    bank row ``(w * bank) >> 32``. A stream depends on (seed, env, step)
+    only, not on N, K or how a kernel lays its threads out."""
+    env = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    step = torch.arange(n_steps, dtype=torch.int64, device=device)[:, None]
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    x, y, z, w = philox4x32_10((env, step, zero, zero), (seed, 0))
+    uniform_int = lambda bits, hi: ((bits * hi) >> 32).to(torch.int32)  # noqa: E731
+    return PhiloxDraws(
+        explore_u=(x >> 8).to(torch.float32) * (1.0 / 16777216.0),
+        rot=uniform_int(y, 4), col=uniform_int(z, 10),
+        reset_idx=uniform_int(w, bank))
 
 
 def rollout_reference(
