@@ -13,7 +13,14 @@ drives the port's two paths through the entry points a user calls:
 2. the DQN trainer at full width (L=2, M=20, 4096 envs, 4096-row device
    bank, 131072-transition replay, batch 128, ``actor_fusion=8``), then a
    1024-episode greedy evaluation and a checkpoint round trip; and, for
-   comparison, the same recipe on the per-step path (``actor_fusion=0``).
+   comparison, the same recipe on the per-step path (``actor_fusion=0``);
+3. the device forward generator and beam prover (n=1024 at L=2/M=20 and
+   L=10/M=30, beam 8, height 4): timed, every winner replayed to WIN on the
+   card, and 256 candidates proven on the card and on the CPU with
+   identical verdicts and solutions at beam 8 and beam 1;
+4. the trainer on a 25% forward-family bank refreshed every chunk (the
+   README's round-5 bank recipe), then a 1024-row held-out bank checked
+   disjoint from it and evaluated in all and per family.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -36,7 +43,10 @@ import numpy as np
 import torch
 
 from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
-from tetris_piclim_tpu_torch.gen.bank import ConfigBank
+from tetris_piclim_tpu_torch.gen import device_forward
+from tetris_piclim_tpu_torch.gen.bank import (
+    FAMILY_CARVE, FAMILY_FORWARD, ConfigBank, make_holdout_bank,
+)
 from tetris_piclim_tpu_torch.models.qnet import QNetwork
 from tetris_piclim_tpu_torch.ops import _build
 from tetris_piclim_tpu_torch.ops import actor as actor_ops
@@ -447,6 +457,138 @@ def phase_trainer_per_step() -> dict:
             "learner_share": last["learner_share"]}
 
 
+def replay_status(cols, pieces, rots, locs, L: int, M: int):
+    """Final state of recorded solutions played through ``bitboard.step``,
+    finished envs frozen."""
+    state = bb.make_state_batch(cols, pieces, L, M)
+    for i in range(M):
+        res = bb.step(state, rots[:, i], locs[:, i])
+        state = bb.state_where(state.status != 0, state, res.state)
+    return state
+
+
+def forward_checks(fb, L: int, M: int, cap: int) -> None:
+    win = fb.winnable
+    idx = win.nonzero()[:, 0]
+    st = replay_status(fb.boards[idx], fb.pieces[idx], fb.rotations[idx],
+                       fb.locations[idx], L, M)
+    n_moves = fb.n_moves[idx]
+    check(bool((st.status == 1).all()) and bool((st.lines_cleared >= L).all())
+          and torch.equal(st.moves_used, n_moves),
+          f"all {idx.numel()} winners replay to WIN in their n_moves")
+    # one move clears at most 4 lines
+    lo, hi = int(n_moves.min()), int(n_moves.max())
+    check(-(-L // 4) <= lo and hi <= M and not bool(fb.n_moves[~win].any()),
+          f"winners' n_moves in [{lo}, {hi}] within [ceil(L/4), M]; losers 0")
+    check(int((20 - bb._ctz20(fb.boards)).max()) <= cap,
+          f"prefill heights <= {cap}")
+    n_bags = (M + 1) // 7
+    bags = fb.pieces[:, :7 * n_bags].reshape(-1, n_bags, 7).sort(dim=-1).values
+    check(bool((bags == torch.arange(7, device=DEV, dtype=torch.int8)).all()),
+          f"every 7-slot of the sequences is a permutation ({n_bags} bags)")
+
+
+def phase_forward() -> dict:
+    """The device forward generator and beam prover (no kernel of its own:
+    plain PyTorch, as the JAX package's is XLA)."""
+    out = {}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for L, M in ((2, 20), (10, 30)):
+        n, cap, beam = 1024, 4, 8
+        print(f"forward generator: n={n}, L={L}/M={M}, height {cap}, beam {beam}")
+        times, yields = [], []
+        for rep in range(4):
+            sync()
+            t0 = time.perf_counter()
+            fb = device_forward.generate_batch_device(
+                n, L, M, cap, beam, generator=gen, device=DEV)
+            sync()
+            if rep:  # the first call is the warm-up
+                times.append(time.perf_counter() - t0)
+            yields.append(float(fb.winnable.float().mean()))
+        ms = float(np.median(times)) * 1e3
+        print(f"  {ms:.1f} ms per chunk (median of {times}); yields {yields}")
+        forward_checks(fb, L, M, cap)
+        cand = (fb.boards[:256], fb.pieces[:256])
+        for b in (8, 1):
+            card = device_forward.prove_batch_device(*cand, L, M, beam_width=b)
+            cpu = device_forward.prove_batch_device(
+                cand[0].cpu(), cand[1].cpu(), L, M, beam_width=b)
+            check(all(torch.equal(x.cpu(), y) for x, y in zip(card, cpu)),
+                  f"beam {b}: card and CPU provers identical on 256 candidates "
+                  f"({int(cpu[0].sum())} proven)")
+        out[f"L{L}_M{M}"] = {"chunk_ms": ms, "chunk_ms_all": [t * 1e3 for t in times],
+                             "yields": yields}
+    return out
+
+
+def phase_trainer_forward() -> dict:
+    """The trainer on a 25% forward-family bank refreshed every chunk, then
+    the held-out bank (counted)."""
+    print("trainer path, forward bank: L=2 M=20, 4096 envs, bank 4096 with 25% "
+          "forward rows, refresh every chunk, actor_fusion 8")
+    K, chunks, log_every = 8, 4, 64
+    cfg = train_config(K, chunks, log_every)
+    sync()
+    t0 = time.perf_counter()
+    bank = ConfigBank(2, 20, capacity=4096, seed=0, device=DEV).fill_device(
+        forward_fraction=0.25)
+    sync()
+    fill_s = time.perf_counter() - t0
+    check(bank.family_counts["forward"] >= 0.98 * 1024,
+          f"fill: {bank.family_counts}")
+    refresh_s, forward_rows = [], []
+    refresh = bank.refresh_device
+
+    def timed_refresh(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = refresh(*args, **kw)
+        sync()
+        refresh_s.append(time.perf_counter() - t)
+        forward_rows.append(bank.family_counts["forward"])
+        return out
+
+    bank.refresh_device = timed_refresh
+    trainer = DQNTrainer(cfg, bank=bank, device=DEV)
+    _build.reset_launch_counts()
+    hist = trainer.train(log_fn=lambda m: print("  " + m), device_refresh_every=1,
+                         device_forward_fraction=0.25)["history"]
+    launches = _build.LAUNCHES["actor"]
+    phases = chunks * log_every // K
+    check(launches == phases, f"actor kernel launched {launches}x = {phases} phases")
+    check(len(refresh_s) == chunks - 1
+          and all(f >= 0.98 * 1024 for f in forward_rows),
+          f"{len(refresh_s)} refreshes, forward rows {forward_rows} >= 98% of 1024")
+    check(all(np.isfinite(r["loss"]) for r in hist), "loss finite")
+    last = hist[-1]
+    print(f"  bank fill {fill_s:.2f} s; refreshes {refresh_s} s; last chunk "
+          f"{last['steps_per_s']:.4e} env-steps/s (refresh inside), learner share "
+          f"{last['learner_share']:.3f}")
+
+    sync()
+    t0 = time.perf_counter()
+    holdout = make_holdout_bank(2, 20, 1024, train_bank=trainer.bank,
+                                forward_seed_budget=100, device=DEV)
+    sync()
+    holdout_s = time.perf_counter() - t0
+    fams = holdout.family_counts
+    check(not (holdout.row_keys() & trainer.bank.row_keys())
+          and fams["carve"] > 0 and fams["forward"] > 0,
+          f"holdout built in {holdout_s:.2f} s, disjoint from training, {fams}")
+    evals = {}
+    for name, b in (("holdout", holdout),
+                    ("holdout_carve", holdout.subset(FAMILY_CARVE)),
+                    ("holdout_forward", holdout.subset(FAMILY_FORWARD))):
+        ev = trainer.evaluate(n_episodes=1024, bank=b)
+        check(ev["unfinished"] == 0.0, f"{name}: win rate {ev['win_rate']:.4f}")
+        evals[name] = ev["win_rate"]
+    return {"fill_s": fill_s, "refresh_s": refresh_s, "forward_rows": forward_rows,
+            "env_steps_per_s": last["steps_per_s"],
+            "learner_share": last["learner_share"], "holdout_s": holdout_s,
+            "holdout_families": fams, "win_rates": evals, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -465,6 +607,8 @@ def main() -> int:
     a = phase_actor_check(bank)
     tr = phase_trainer()
     per_step = phase_trainer_per_step()
+    fwd = phase_forward()
+    tr_fwd = phase_trainer_forward()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -488,6 +632,9 @@ def main() -> int:
                       "per_step_trainer_env_steps_per_s": per_step["env_steps_per_s"],
                       "per_step_trainer_learner_share": per_step["learner_share"],
                       "trainer_eval_win_rate": tr["win_rate"]}))
+    print(json.dumps({"forward_generator": fwd,
+                      "forward_bank_trainer": {
+                          k: v for k, v in tr_fwd.items() if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

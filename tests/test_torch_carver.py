@@ -69,5 +69,6 @@ def test_bank_fill_and_refresh():
     before = bank.cols.clone()
     bank.refresh_device(seed=5)
     assert not torch.equal(before, bank.cols)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bank.fill_device(forward_fraction=0.25)
+    assert bank.family_counts == {"carve": 64, "forward": 0}
+    # the forward share is ported (tests/test_torch_holdout.py)
+    assert bank.fill_device(forward_fraction=0.25).family_counts["forward"] == 16

@@ -18,9 +18,9 @@ int, so the loop waits on the device once per chunk (logging). Random draws
 come from a generator on the device; scalar draws the host needs (window
 offsets, kernel seeds) from a CPU generator, so they cost no device sync.
 
-Not ported yet (they raise; see ROADMAP.md): demonstrations, n-step and
-prioritized replay, bf16 moments, dueling heads, the device-forward bank,
-adaptive share, host refresh and multi-device meshes.
+Not ported yet (see ROADMAP.md): demonstrations, n-step and prioritized
+replay, bf16 moments and dueling heads (they raise), adaptive share, host
+refresh and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -92,6 +92,17 @@ class _Clock:
             ms = sum(b - a for a, b in self.spans) * 1e3
         self.spans.clear()
         return ms
+
+
+def height_at(device_height, done_steps: int, total_steps: int) -> int:
+    """The forward generator's ``initial_height_max`` at ``done_steps``:
+    ``device_height=(h0, h1)`` anneals linearly from h0 to h1 over the run;
+    None is the reference's 4 (tetris_algo_main/main.py:38)."""
+    if device_height is None:
+        return 4
+    h0, h1 = device_height
+    frac = done_steps / max(total_steps, 1)
+    return int(round(h0 + (h1 - h0) * frac))
 
 
 class DQNTrainer:
@@ -222,10 +233,18 @@ class DQNTrainer:
     # -- host loop ----------------------------------------------------------------
 
     def train(self, total_steps: Optional[int] = None, log_fn=print,
-              device_refresh_every: int = 0) -> dict:
+              device_refresh_every: int = 0,
+              device_forward_fraction: float = 0.0,
+              device_beam_width: int = 8,
+              device_height: Optional[tuple[int, int]] = None) -> dict:
         """Run ``total_steps`` env steps in chunks of ``log_every``, logging
         one row per chunk. ``device_refresh_every=k`` regenerates the bank
-        on the device every k chunks (fresh seed each time)."""
+        on the device every k chunks (fresh seed each time), inside the
+        next chunk's timer: carve rows only, or with
+        ``device_forward_fraction > 0`` the whole bank as that share of
+        proven forward rows (beam ``device_beam_width``) over carves.
+        ``device_height=(h0, h1)`` anneals the forward generator's
+        ``initial_height_max`` from h0 to h1 over this call's steps."""
         cfg = self.cfg
         total = total_steps if total_steps is not None else cfg.total_steps
         chunk = max(1, min(cfg.log_every, total))
@@ -235,7 +254,11 @@ class DQNTrainer:
         t0 = time.perf_counter()
         while done_steps < total:
             if device_refresh_every and chunk_i and chunk_i % device_refresh_every == 0:
-                self.bank.refresh_device(seed=int(bank_keys.integers(2**31 - 1)))
+                self.bank.refresh_device(
+                    seed=int(bank_keys.integers(2**31 - 1)),
+                    forward_fraction=device_forward_fraction,
+                    beam_width=device_beam_width,
+                    initial_height_max=height_at(device_height, done_steps, total))
             chunk_i += 1
             n = min(chunk, total - done_steps)
             if cfg.actor_fusion > 0:

@@ -9,7 +9,14 @@ a 4x4 box anchored at the top-left. Per (piece, rotation):
   the width),
 * ``NROT``: rotations per piece; rotation indices wrap modulo this.
 
-The values equal ``tetris_piclim_tpu.tables`` (tests/test_torch_bitboard.py).
+The host forward generator and its solver (``gen/forward.py``,
+``gen/solver.py``) use the generator flavor instead: letter-keyed shapes
+``GEN_SHAPES`` with the rotation order of the reference's generator
+(TetrisGameGenerator.py:5-13), drawn in the order ``GEN_NAME_ORDER``;
+``PIECE_IDS`` maps a letter to its engine id.
+
+The values equal ``tetris_piclim_tpu.tables`` (tests/test_torch_bitboard.py,
+tests/test_torch_holdout.py).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ MAX_ROT = 4
 MASK_BOX = 4
 
 PIECE_NAMES = ("I", "L", "J", "T", "S", "Z", "O")
+PIECE_IDS = {name: idx for idx, name in enumerate(PIECE_NAMES)}
 
 _ART: dict[str, tuple[tuple[str, ...], ...]] = {
     "I": (("####",), ("#", "#", "#", "#")),
@@ -73,3 +81,44 @@ def _build():
 
 
 MASKS, WIDTH, HEIGHT, RTOPO, NROT = _build()
+
+
+# Generator flavor (reference TetrisGameGenerator.py:5-13): the rotation
+# ORDER differs from the engine's, so seeded ``randint(0, nrot - 1)`` draws
+# map to the reference's shapes.
+_GEN_ART: dict[str, tuple[tuple[str, ...], ...]] = {
+    "I": (("####",), ("#", "#", "#", "#")),
+    "J": (
+        ("#..", "###"),
+        ("##", "#.", "#."),
+        ("###", "..#"),
+        (".#", ".#", "##"),
+    ),
+    "L": (
+        ("..#", "###"),
+        ("#.", "#.", "##"),
+        ("###", "#.."),
+        ("##", ".#", ".#"),
+    ),
+    "O": (("##", "##"),),
+    "S": ((".##", "##."), ("#.", "##", ".#")),
+    "T": (
+        (".#.", "###"),
+        ("#.", "##", "#."),
+        ("###", ".#."),
+        (".#", "##", ".#"),
+    ),
+    "Z": (("##.", ".##"), (".#", "##", "#.")),
+}
+
+# piece-name order of the forward generator's ``random.choice``
+# (reference TetrisGameGenerator.py:22)
+GEN_NAME_ORDER = ("I", "J", "L", "O", "S", "T", "Z")
+
+GEN_SHAPES: dict[str, list[np.ndarray]] = {
+    name: [
+        np.array([[ch == "#" for ch in row] for row in art], dtype=np.int64)
+        for art in arts
+    ]
+    for name, arts in _GEN_ART.items()
+}

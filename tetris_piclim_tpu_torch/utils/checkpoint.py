@@ -3,8 +3,9 @@
 Counterpart of ``tetris_piclim_tpu/utils/checkpoint.py`` (orbax there): the
 full TrainState (online and target weights, optimizer moments, replay ring,
 env states, generator states, counters) goes to ``<path>/state.pt``, and
-the live bank rows to ``<path>/bank.pt``, so a run resumes exactly where it
-stopped and an evaluation sees the bank training ended on.
+the live bank rows and their families to ``<path>/bank.pt``, so a run
+resumes exactly where it stopped and an evaluation sees the bank training
+ended on.
 """
 
 from __future__ import annotations
@@ -63,10 +64,11 @@ def restore_params(path: str, device) -> tuple[dict, dict]:
 
 
 def save_bank(path: str, bank: ConfigBank) -> str:
-    """Write the bank's live rows to ``<path>/bank.pt``."""
+    """Write the bank's live rows and their families to ``<path>/bank.pt``."""
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, "bank.pt")
     torch.save({"cols": bank.cols, "pieces": bank.pieces,
+                "family": torch.as_tensor(bank.family),
                 "L": bank.L, "M": bank.M}, out)
     return out
 
@@ -74,4 +76,5 @@ def save_bank(path: str, bank: ConfigBank) -> str:
 def restore_bank(path: str, device) -> ConfigBank:
     """A bank from :func:`save_bank` output (the directory or the file)."""
     sd = _load(path, "bank.pt", device)
-    return ConfigBank.from_rows(sd["L"], sd["M"], sd["cols"], sd["pieces"])
+    return ConfigBank.from_rows(sd["L"], sd["M"], sd["cols"], sd["pieces"],
+                                sd["family"].cpu().numpy())
