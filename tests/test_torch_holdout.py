@@ -57,7 +57,7 @@ def test_host_forward_pipeline_matches_jax(L, M):
     got = pipeline.generate_batch(L, M, seeds.start, seeds.stop)
     want = jpipeline.generate_batch(L, M, seeds.start, seeds.stop)
     assert [g.seed for g in got] == [g.seed for g in want] and got
-    rows = pipeline.translate_batch(got, M, rng=random.Random(5), parity=False)
+    rows = pipeline.translate_batch(got, M, rng=random.Random(5))
     jrows = jpipeline.translate_batch(want, M, rng=random.Random(5), parity=False)
     for (b, p), (jb, jp) in zip(rows, jrows, strict=True):
         np.testing.assert_array_equal(b, jb)
@@ -149,6 +149,15 @@ def test_fill_and_refresh_with_forward_share(tmp_path):
     save_bank(str(tmp_path), bank)
     back = restore_bank(str(tmp_path), "cpu")
     np.testing.assert_array_equal(back.family, bank.family)
+    assert torch.equal(back.cols, bank.cols) and torch.equal(back.pieces, bank.pieces)
+
+
+def test_restore_bank_without_family_gives_carve_rows(tmp_path):
+    bank = ConfigBank(1, 8, capacity=8, seed=0, device="cpu").fill_device()
+    torch.save({"cols": bank.cols, "pieces": bank.pieces, "L": 1, "M": 8},
+               str(tmp_path / "bank.pt"))
+    back = restore_bank(str(tmp_path), "cpu")
+    assert back.family_counts == {"carve": 8, "forward": 0}
     assert torch.equal(back.cols, bank.cols) and torch.equal(back.pieces, bank.pieces)
 
 

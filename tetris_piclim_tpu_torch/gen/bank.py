@@ -237,7 +237,7 @@ def make_holdout_bank(
            and time.monotonic() < t_end):
         games = generate_batch(L, M, seed_start=s, seed_end=s + 100)
         s += 100
-        for b, p in translate_batch(games, M, rng=bank._rng, parity=False):
+        for b, p in translate_batch(games, M, rng=bank._rng):
             if len(rows) >= n_forward:
                 break
             add(np.asarray(b, dtype=bool),

@@ -7,10 +7,10 @@ game/tetris_algo_main/main.py:26-95, a process pool there, a thread pool
 here). The held-out bank's forward rows come from here, so the calls into
 ``random.Random`` are the JAX package's, one for one.
 
-Quirk policy (SURVEY.md §3.5, §7): the reference's ``translate``
-(game/tetris.py:19-20) PREPENDS one random piece to every proven sequence;
-``parity=True`` reproduces that, ``parity=False`` appends it instead, so
-the proven sequence stays intact and still has the M+1 length of the env.
+The reference's ``translate`` (game/tetris.py:19-20) PREPENDS one random
+piece to every proven sequence, which shifts the proven sequence by one.
+Here the piece is appended, so the proven sequence stays intact and still
+has the M+1 length of the env.
 """
 
 from __future__ import annotations
@@ -31,11 +31,14 @@ DEFAULT_BATCH = 100             # reference seeds range(0, 100), main.py:39-40
 
 
 def _prove_one(args):
-    seed, L, M, initial_height_max, max_attempts = args
+    seed, L, M = args
     game = ForwardGenerator(
-        seed=seed, goal=L, num_pieces=M, initial_height_max=initial_height_max
+        seed=seed, goal=L, num_pieces=M,
+        initial_height_max=DEFAULT_INITIAL_HEIGHT_MAX,
     )
-    solver = GreedyDFSSolver(game.board, game.sequence, L, max_attempts=max_attempts)
+    solver = GreedyDFSSolver(
+        game.board, game.sequence, L, max_attempts=DEFAULT_MAX_ATTEMPTS
+    )
     solvable, _, _ = solver.solve()
     return game if solvable else None
 
@@ -45,15 +48,10 @@ def generate_batch(
     M: int,
     seed_start: int = 0,
     seed_end: int = DEFAULT_BATCH,
-    initial_height_max: int = DEFAULT_INITIAL_HEIGHT_MAX,
-    max_attempts: int = DEFAULT_MAX_ATTEMPTS,
 ) -> list[ForwardGenerator]:
     """Generate and prove seeds [seed_start, seed_end); return the winnable
     games in seed order (reference ``generate_batch``)."""
-    jobs = [
-        (s, L, M, initial_height_max, max_attempts)
-        for s in range(seed_start, seed_end)
-    ]
+    jobs = [(s, L, M) for s in range(seed_start, seed_end)]
     with ThreadPoolExecutor() as pool:
         results = list(pool.map(_prove_one, jobs))
     return [g for g in results if g is not None]
@@ -63,15 +61,13 @@ def translate_batch(
     games: list[ForwardGenerator],
     M: int,
     rng: Optional[random.Random] = None,
-    parity: bool = True,
 ) -> list[tuple[np.ndarray, list[int]]]:
-    """Letter sequences -> engine piece ids, plus one random piece: prepended
-    under ``parity=True`` (the reference's quirk), appended otherwise."""
+    """Letter sequences -> engine piece ids, plus one random piece appended."""
     rng = rng or random
     out = []
     for g in games:
         ids = [PIECE_IDS[letter] for letter in g.sequence]
         extra = rng.randint(0, 6)
-        seq = [extra] + ids if parity else ids + [extra]
+        seq = ids + [extra]
         out.append((g.board.astype(bool), seq))
     return out

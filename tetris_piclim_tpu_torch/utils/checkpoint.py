@@ -74,7 +74,10 @@ def save_bank(path: str, bank: ConfigBank) -> str:
 
 
 def restore_bank(path: str, device) -> ConfigBank:
-    """A bank from :func:`save_bank` output (the directory or the file)."""
+    """A bank from :func:`save_bank` output (the directory or the file); a
+    file written without ``family`` gives carve-family rows."""
     sd = _load(path, "bank.pt", device)
-    return ConfigBank.from_rows(sd["L"], sd["M"], sd["cols"], sd["pieces"],
-                                sd["family"].cpu().numpy())
+    family = sd.get("family")
+    return ConfigBank.from_rows(
+        sd["L"], sd["M"], sd["cols"], sd["pieces"],
+        None if family is None else family.cpu().numpy())

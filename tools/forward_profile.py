@@ -8,14 +8,18 @@ L=2/M=20 and L=10/M=30, the carver's 4096-row batch, and a whole
 ``ConfigBank.refresh_device`` of a 4096-row bank with 25% forward rows.
 For each: the wall time (CUDA-synchronised, median of 3 after a warm-up),
 then one more call under ``torch.profiler``: CUDA kernels launched, their
-summed device time, the device's busy share of the profiled wall time, and
-the kernels that take the most device time. Prints one JSON line per case
-and, last, the card's name and power limit.
+summed device time, and the kernels that take the most device time. Two
+busy shares come from that device time: ``device_busy_share`` divides it by
+the profiled call's own wall time, which the profiler's overhead inflates;
+``device_share_of_median_wall`` divides it by the median unprofiled wall
+time. Prints one JSON line per case and, last, the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -90,8 +94,11 @@ def main() -> int:
     cases["refresh_4096_forward_0.25"] = lambda: bank.refresh_device(
         forward_fraction=0.25)
     for name, fn in cases.items():
-        row = {"case": name, "wall_ms": wall_ms(fn)}
+        walls = wall_ms(fn)
+        row = {"case": name, "wall_ms": walls}
         row.update(profiled(fn))
+        row["device_share_of_median_wall"] = (
+            row["kernel_device_ms"] / statistics.median(walls))
         print(json.dumps(row), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
