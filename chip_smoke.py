@@ -20,7 +20,19 @@ drives the port's two paths through the entry points a user calls:
    identical verdicts and solutions at beam 8 and beam 1;
 4. the trainer on a 25% forward-family bank refreshed every chunk (the
    README's round-5 bank recipe), then a 1024-row held-out bank checked
-   disjoint from it and evaluated in all and per family.
+   disjoint from it and evaluated in all and per family;
+5. the learner's parts, card against CPU with TF32 off: the conv net from
+   either JAX impl's parameter tree (all four heads, and the bf16 torso),
+   three bf16-moment optimizer steps, the demo rollout of a 256-candidate
+   prover batch at L=10/M=30, the n-step/PER sample from given base
+   indices and a priority write-back with duplicate indices;
+6. round 5's flagship demo recipe at full width (L=10/M=30, conv (32,64) +
+   dueling + joint, 2048 envs, bank 4096, 4 updates per step, 25% forward
+   rows refreshed every chunk, height 8:4, 1024 demo rows rebuilt every
+   chunk, margin 0.8), then a 2048-row holdout and a checkpoint round trip;
+7. the adaptive share (rule v2) with bf16 moments at L=5/M=25 on the same
+   flags, every logged share held against the controller;
+8. the fused-actor trainer with 3-step returns and prioritized replay.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -42,11 +54,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
+from tetris_piclim_tpu_torch.dqn import agent as agent_lib
+from tetris_piclim_tpu_torch.dqn.replay import ReplayBuffer
+from tetris_piclim_tpu_torch.dqn.train import DQNTrainer, adapt_share_v2
 from tetris_piclim_tpu_torch.gen import device_forward
 from tetris_piclim_tpu_torch.gen.bank import (
     FAMILY_CARVE, FAMILY_FORWARD, ConfigBank, make_holdout_bank,
 )
+from tetris_piclim_tpu_torch.models import convnet
 from tetris_piclim_tpu_torch.models.qnet import QNetwork
 from tetris_piclim_tpu_torch.ops import _build
 from tetris_piclim_tpu_torch.ops import actor as actor_ops
@@ -589,6 +604,397 @@ def phase_trainer_forward() -> dict:
             "holdout_families": fams, "win_rates": evals, "launches": launches}
 
 
+# -- the learner and the training recipe (no kernel of their own) --------------
+
+def flax_tree(net: convnet.ConvQNetwork, impl: str) -> dict:
+    """``net``'s weights as the JAX package's parameter tree of ``impl``
+    (numpy), the layout ``convnet.params_from_flax`` reads."""
+    sd = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+    dense = lambda w, b: {"kernel": w.T.copy(), "bias": b}  # noqa: E731
+    hwio = lambda w, b: {"kernel": w.transpose(2, 3, 1, 0).copy(), "bias": b}  # noqa: E731
+    p, n = {}, len(net.channels)
+    for i in range(n):
+        w, b = sd[f"convs.{i}.weight"], sd[f"convs.{i}.bias"]
+        if impl == "im2col":   # patch features ordered (c, kh, kw)
+            p[f"Dense_{i}"] = dense(w.reshape(w.shape[0], -1), b)
+        else:
+            p[f"Conv_{i}"] = hwio(w, b)
+    if net.bottleneck:
+        p["Conv_0" if impl == "im2col" else f"Conv_{n}"] = hwio(
+            sd["narrow.weight"], sd["narrow.bias"])
+    d = n if impl == "im2col" else 0
+    heads = ("value", "adv") if net.dueling else ("out",)
+    names = ["dense.0", "dense.1"] + [f"head.{h}" for h in heads]
+    for k, name in enumerate(names):
+        p[f"Dense_{d + k}"] = dense(sd[f"{name}.weight"], sd[f"{name}.bias"])
+    return {"params": p}
+
+
+def flagship_net(seed: int, **kw) -> convnet.ConvQNetwork:
+    """The README's flagship net: conv (32, 64) + dueling + joint."""
+    return convnet.ConvQNetwork(channels=(32, 64), dueling=True, joint=True,
+                                generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 units in the last place (same-sign values)."""
+    ia = a.view(torch.int16).int().cpu()
+    ib = b.view(torch.int16).int().cpu()
+    return int((ia - ib).abs().max())
+
+
+def random_transitions(rng, n: int) -> list:
+    """One step's packed transition fields (numpy), ~1 in 5 terminal."""
+    boards = adversarial_boards(rng, 2 * n)
+    w = (1 << np.arange(20, dtype=np.int64))[:, None]
+    cols = (boards.astype(np.int64) * w).sum(axis=-2).astype(np.int32)
+    i8 = lambda hi: rng.integers(0, hi, n).astype(np.int8)  # noqa: E731
+    i32 = lambda hi: rng.integers(0, hi, n).astype(np.int32)  # noqa: E731
+    return [cols[:n], i8(7), i8(7), i32(11), i32(31), i8(4), i8(10),
+            rng.choice([-10.0, 0.0, 1.0, 10.0], n).astype(np.float32),
+            rng.random(n) < 0.2, cols[n:], i8(7), i8(7), i32(11), i32(31), i8(3)]
+
+
+def phase_learner_checks() -> dict:
+    """Card against CPU on identical inputs, TF32 off: the conv net, the
+    bf16-moment optimizer, the demo rollout and the n-step/PER sampler."""
+    out = {}
+    rng = np.random.default_rng(21)
+    obs = bb.observe(make_state(rng, 1024, 10, 30))
+    q_err = {}
+    for dueling in (False, True):
+        for joint in (False, True):
+            base = convnet.ConvQNetwork(
+                dueling=dueling, joint=joint,
+                generator=torch.Generator().manual_seed(2 * dueling + joint))
+            with torch.no_grad():   # nonzero biases
+                gen = torch.Generator().manual_seed(7)
+                for name, prm in base.named_parameters():
+                    if name.endswith("bias"):
+                        prm.normal_(0.0, 0.05, generator=gen)
+                want = base(obs.cpu())
+            for impl in ("conv", "im2col"):
+                net = convnet.ConvQNetwork(dueling=dueling, joint=joint, impl=impl)
+                net.load_state_dict(convnet.params_from_flax(flax_tree(base, impl), net))
+                with torch.no_grad():
+                    check(torch.equal(net(obs.cpu()), want),
+                          f"conv net from the {impl} tree (dueling={dueling}, "
+                          f"joint={joint}) equals its source on the CPU")
+                    got = net.to(DEV)(obs)
+                err = float((got.cpu() - want).abs().max())
+                q_err[f"{impl}_d{int(dueling)}_j{int(joint)}"] = err
+                check(err <= 1e-4, f"conv net {impl} dueling={dueling} joint={joint}: "
+                      f"card Q within 1e-4 of the CPU ({err:.2e})")
+    half = convnet.ConvQNetwork(dueling=True, joint=True, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = half(obs.cpu())
+        err = float((half.to(DEV)(obs).cpu() - want).abs().max())
+    check(err <= 5e-2, f"bf16 torso: card Q within 5e-2 of the CPU ({err:.2e})")
+    out["conv_q_max_abs_err"], out["conv_bf16_q_max_abs_err"] = q_err, err
+
+    # three bf16-moment optimizer steps on the same gradients
+    cfg = DQNConfig(opt_state_bf16=True)
+    nets = [flagship_net(4) for _ in range(2)]
+    nets[1].to(DEV)
+    opts = [agent_lib.make_optimizer(n, cfg) for n in nets]
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(3):
+        for prm_c, prm_d in zip(nets[0].parameters(), nets[1].parameters()):
+            g = torch.randn(prm_c.shape, generator=gen) * 10.0 ** torch.randint(
+                -4, 1, prm_c.shape, generator=gen)
+            prm_c.grad, prm_d.grad = g, g.to(DEV)
+        for o in opts:
+            o.step()
+    ulps = max(bf16_ulps(a, b.cpu()) for f in ("mu", "nu", "nu_max")
+               for a, b in zip(getattr(opts[0], f), getattr(opts[1], f)))
+    check(ulps <= 1 and all(m.dtype == torch.bfloat16 for m in opts[1].mu),
+          f"bf16 moments after 3 steps: card = CPU within {ulps} bf16 ulp")
+    p_err = max(float((a - b.cpu()).detach().abs().max())
+                for a, b in zip(nets[0].parameters(), nets[1].parameters()))
+    check(p_err <= 1e-6, f"parameters within 1e-6 ({p_err:.2e})")
+    out["bf16_moment_ulps"], out["bf16_param_max_abs_err"] = ulps, p_err
+
+    # the demo rollout of one prover batch, word for word
+    L, M = 10, 30
+    fb = device_forward.generate_batch_device(
+        256, L, M, 8, 8, generator=torch.Generator(device=DEV).manual_seed(6), device=DEV)
+    bank = ConfigBank(L, M, capacity=64, seed=0, device=DEV).fill_device()
+    cfg = TrainConfig(env=EnvConfig(L=L, M=M), num_envs=64, bank_capacity=64,
+                      replay_capacity=1024, demo_every=1, demo_capacity=8192, seed=0)
+    bufs = []
+    for dev, b in ((DEV, bank), ("cpu", ConfigBank.from_rows(
+            L, M, bank.cols.cpu(), bank.pieces.cpu()))):
+        tr = DQNTrainer(cfg, bank=b, device=dev)
+        tr._demo_rollout(*(x.to(dev) for x in (fb.boards, fb.pieces, fb.rotations,
+                                               fb.locations, fb.n_moves)))
+        bufs.append(tr._demo.buf)
+    check(all(torch.equal(bufs[0][k].cpu(), bufs[1][k]) for k in bufs[1]),
+          f"demo rollout of 256 candidates at L={L}/M={M} "
+          f"({int(fb.winnable.sum())} proven): card = CPU word for word")
+
+    # the n-step / PER sample from given base indices, and the write-back
+    cap, gap, B = 32768, 4096, 128
+    rpls = [ReplayBuffer(cap, DEV), ReplayBuffer(cap, "cpu")]
+    for _ in range(cap // gap):
+        f = random_transitions(rng, gap)
+        for r in rpls:
+            r.add_fields(*(torch.as_tensor(x, device=r.device) for x in f))
+    prio = rng.gamma(1.0, 1.0, cap).astype(np.float32) + 1e-3
+    for r in rpls:
+        r.priority.copy_(torch.as_tensor(prio))
+    idx0 = torch.as_tensor(rng.integers(0, cap - 2 * gap, B))
+    kw = dict(gamma=0.99, n_step=3, step_gap=gap, alpha=0.6, beta=0.4)
+    bd, _ = rpls[0].sample_ext(B, prioritized=True, idx0=idx0.to(DEV), **kw)
+    bc, _ = rpls[1].sample_ext(B, prioritized=True, idx0=idx0, **kw)
+    check(all(torch.equal(getattr(bd, f).cpu(), getattr(bc, f)) for f in
+              ("obs", "next_obs", "rot", "col", "reward", "done", "discount")),
+          "n-step PER sample from given bases: card = CPU (all but the weights)")
+    w_err = float((bd.weight.cpu() - bc.weight).abs().max())
+    check(w_err <= 1e-6, f"importance weights within 1e-6 ({w_err:.2e})")
+    idx = torch.as_tensor(rng.integers(0, 50, B))   # many duplicates
+    td = torch.as_tensor(rng.random(B).astype(np.float32))
+    for r in rpls:
+        r.update_priority(idx.to(r.device), td.to(r.device), 1e-3)
+    check(torch.equal(rpls[0].priority.cpu(), rpls[1].priority)
+          and float(rpls[0].max_prio) == float(rpls[1].max_prio),
+          "priority write-back with duplicate indices: card = CPU")
+    out["per_weight_max_abs_err"] = w_err
+    return out
+
+
+class cudnn_tf32:
+    """cuDNN's TF32 as the trainer runs it (PyTorch's default, on) inside a
+    training phase; the checks around it keep TF32 off."""
+
+    def __enter__(self):
+        self.old = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.old
+
+
+def timed(obj, name: str, log: list, after=None) -> None:
+    """Wrap ``obj.name`` so every call's synchronised wall time (and
+    ``after()``'s reading) is appended to ``log``."""
+    fn = getattr(obj, name)
+
+    def run(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        sync()
+        log.append((time.perf_counter() - t, after() if after else None))
+        return res
+
+    setattr(obj, name, run)
+
+
+def recipe_config(L: int, M: int, chunks: int, log_every: int, dqn=None,
+                  **kw) -> TrainConfig:
+    """``tools/round5d.sh``'s flag set: 2048 envs, bank 4096, replay 131072,
+    batch 128, 4 updates per step."""
+    return TrainConfig(
+        env=EnvConfig(L=L, M=M), dqn=dqn or DQNConfig(batch_size=128),
+        num_envs=2048, bank_capacity=4096, replay_capacity=131072,
+        warmup_steps=1000, updates_per_step=4,
+        total_steps=chunks * log_every, log_every=log_every, seed=0, **kw)
+
+
+def learner_ms_per_update(row: dict, num_envs: int, n_steps: int) -> float:
+    chunk_ms = n_steps * num_envs / row["steps_per_s"] * 1e3
+    return row["learner_share"] * chunk_ms / max(row["updates"], 1)
+
+
+def checkpoint_round_trip(trainer: DQNTrainer, make, episodes: int) -> None:
+    """Save the trainer and its bank, restore both into ``make(bank)``, and
+    check weights, optimizer state and a greedy evaluation agree."""
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    try:
+        save_train_state(str(ckpt), trainer.state)
+        save_bank(str(ckpt), trainer.bank)
+        fresh = make(restore_bank(str(ckpt), DEV))
+        fresh.restore_checkpoint(str(ckpt))
+        a, b = trainer.state, fresh.state
+        check(all(torch.equal(x, y) for x, y in zip(a.net.parameters(), b.net.parameters()))
+              and all(torch.equal(x, y) for f in ("mu", "nu", "nu_max")
+                      for x, y in zip(getattr(a.opt, f), getattr(b.opt, f)))
+              and a.opt.count == b.opt.count and a.global_step == b.global_step,
+              f"checkpoint restores weights and {a.opt.mu[0].dtype} moments")
+        check(fresh.evaluate(episodes, seed=9) == trainer.evaluate(episodes, seed=9),
+              "restored trainer evaluates identically")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_flagship_demo() -> dict:
+    """Round 5's D2 recipe at full width (counted: no kernel runs on it)."""
+    L, M, chunks, log_every = 10, 30, 3, 64
+    print(f"flagship demo trainer: L={L} M={M}, conv (32,64) + dueling + joint, "
+          "2048 envs, bank 4096, replay 131072, batch 128, updates 4, 25% "
+          "forward, refresh 1, height 8:4, demos 1024 rows every chunk, "
+          "ratio 0.25, margin 0.8")
+    cfg = recipe_config(L, M, chunks, log_every, demo_every=1, demo_ratio=0.25,
+                        demo_rows=1024, demo_margin=0.8)
+    with cudnn_tf32():
+        sync()
+        t0 = time.perf_counter()
+        bank = ConfigBank(L, M, capacity=4096, seed=0, device=DEV).fill_device(
+            forward_fraction=0.25, initial_height_max=8)
+        sync()
+        fill_s = time.perf_counter() - t0
+        n_fwd = int(bank.capacity * 0.25)
+        check(bank.family_counts["forward"] >= 0.98 * n_fwd, f"fill: {bank.family_counts}")
+        trainer = DQNTrainer(cfg, bank=bank, net=flagship_net(0), device=DEV)
+        refreshes, demos = [], []
+        timed(bank, "refresh_device", refreshes,
+              after=lambda: bank.family_counts["forward"])
+        timed(trainer, "_refresh_demo", demos,
+              after=lambda: (trainer._demo.size, bool(trainer._demo.buf["done"].all())))
+        hist = trainer.train(log_fn=lambda m: print("  " + m), device_refresh_every=1,
+                             device_forward_fraction=0.25, device_height=(8, 4))["history"]
+    full = (cfg.demo_capacity, True)
+    check(len(demos) == chunks and all(d == full for _, d in demos),
+          f"{len(demos)} demo refreshes, each leaving {[d for _, d in demos]} "
+          f"(rows, all done) = {full}")
+    check(len(refreshes) == chunks - 1 and all(f >= 0.98 * n_fwd for _, f in refreshes),
+          f"{len(refreshes)} bank refreshes, forward rows "
+          f"{[f for _, f in refreshes]} >= 98% of {n_fwd}")
+    check(all(np.isfinite(r["loss"]) for r in hist), "loss finite")
+    # learning starts once the replay holds max(warmup, batch) transitions
+    idle = -(-max(cfg.warmup_steps, 128) // cfg.num_envs) - 1
+    n_upd = trainer.state.updates_done
+    check(n_upd == 4 * (chunks * log_every - idle),
+          f"updates_done {n_upd} = 4 per step once learning starts (step {idle})")
+    last = hist[-1]
+    upd_ms = learner_ms_per_update(last, cfg.num_envs, log_every)
+    demo_s, refresh_s = [d[0] for d in demos], [r[0] for r in refreshes]
+    print(f"  bank fill {fill_s:.2f} s; bank refreshes {refresh_s} s; demo "
+          f"refreshes {demo_s} s; last chunk {last['steps_per_s']:.4e} "
+          f"env-steps/s, learner share {last['learner_share']:.3f}, "
+          f"{upd_ms:.3f} ms per update")
+
+    sync()
+    t0 = time.perf_counter()
+    holdout = make_holdout_bank(L, M, 2048, train_bank=trainer.bank,
+                                forward_seed_budget=100, device=DEV)
+    sync()
+    holdout_s = time.perf_counter() - t0
+    fams = holdout.family_counts
+    check(not (holdout.row_keys() & trainer.bank.row_keys())
+          and fams["carve"] > 0 and fams["forward"] > 0,
+          f"holdout built in {holdout_s:.2f} s, disjoint from training, {fams}")
+    evals = {}
+    for name, b in (("holdout", holdout),
+                    ("holdout_carve", holdout.subset(FAMILY_CARVE)),
+                    ("holdout_forward", holdout.subset(FAMILY_FORWARD))):
+        ev = trainer.evaluate(n_episodes=2048, bank=b)
+        check(ev["unfinished"] == 0.0, f"{name}: win rate {ev['win_rate']:.4f}")
+        evals[name] = ev["win_rate"]
+    checkpoint_round_trip(
+        trainer, lambda b: DQNTrainer(cfg, bank=b, net=flagship_net(1), device=DEV), 1024)
+    return {"fill_s": fill_s, "bank_refresh_s": refresh_s, "demo_refresh_s": demo_s,
+            "env_steps_per_s": last["steps_per_s"],
+            "learner_share": last["learner_share"], "learner_ms_per_update": upd_ms,
+            "holdout_s": holdout_s, "holdout_families": fams, "win_rates": evals}
+
+
+def phase_adaptive_bf16() -> dict:
+    """Round 5's V recipe with bf16 moments (E1) at L=5/M=25."""
+    L, M, chunks, log_every = 5, 25, 3, 64
+    print(f"adaptive-share trainer: L={L} M={M}, the flagship flags, 50% forward, "
+          "adaptive share (rule v2, every chunk), bf16 moments")
+    cfg = recipe_config(L, M, chunks, log_every,
+                        dqn=DQNConfig(batch_size=128, opt_state_bf16=True))
+    with cudnn_tf32():
+        bank = ConfigBank(L, M, capacity=4096, seed=0, device=DEV).fill_device(
+            forward_fraction=0.5)
+        trainer = DQNTrainer(cfg, bank=bank, net=flagship_net(0), device=DEV)
+        probes = []
+        timed(trainer, "evaluate", probes)
+        hist = trainer.train(log_fn=lambda m: print("  " + m), device_refresh_every=1,
+                             device_forward_fraction=0.5, adaptive_share=True,
+                             adapt_every=1, adapt_rule="v2")["history"]
+    share = 0.5
+    for r in hist[1:]:
+        share = adapt_share_v2(share, r["probe_carve"], r["probe_forward"])
+        check(r["forward_share"] == round(share, 4),
+              f"share {r['forward_share']} = adapt_share_v2 of probes "
+              f"({r['probe_carve']:.4f}, {r['probe_forward']:.4f})")
+    check(len(probes) == 2 * (chunks - 1), f"{len(probes)} probe evaluations")
+    opt = trainer.state.opt
+    check(isinstance(opt, agent_lib.AmsgradBf16)
+          and all(m.dtype == torch.bfloat16 for m in opt.mu + opt.nu + opt.nu_max),
+          "moments stored in bfloat16")
+    check(all(np.isfinite(r["loss"]) for r in hist), "loss finite")
+    last = hist[-1]
+    upd_ms = learner_ms_per_update(last, cfg.num_envs, log_every)
+    probe_s = [p[0] for p in probes]
+    print(f"  probe evaluations {probe_s} s; last chunk {last['steps_per_s']:.4e} "
+          f"env-steps/s, learner share {last['learner_share']:.3f}, {upd_ms:.3f} ms "
+          "per update")
+    checkpoint_round_trip(
+        trainer, lambda b: DQNTrainer(cfg, bank=b, net=flagship_net(1), device=DEV), 1024)
+    return {"shares": [r.get("forward_share") for r in hist],
+            "probes": [(r.get("probe_carve"), r.get("probe_forward")) for r in hist],
+            "probe_eval_s": probe_s, "env_steps_per_s": last["steps_per_s"],
+            "learner_share": last["learner_share"], "learner_ms_per_update": upd_ms}
+
+
+def phase_nstep_per() -> dict:
+    """phase_trainer's fused-actor recipe with 3-step returns and
+    prioritized replay (counted: the actor kernel runs every phase)."""
+    K, chunks, log_every = 8, 2, 32
+    # warmup raised so that the n-step threshold, 30000 + 2 * 4096 = 38192
+    # transitions, falls between the first phase (32768) and the second
+    warmup = 30000
+    print("n-step/PER trainer: L=2 M=20, 4096 envs, bank 4096, replay 131072, "
+          f"batch 128, actor_fusion 8, n_step 3, PER, warmup {warmup}")
+    cfg = TrainConfig(
+        env=EnvConfig(L=2, M=20),
+        dqn=DQNConfig(batch_size=128, n_step=3, prioritized=True),
+        actor_fusion=K, num_envs=4096, bank_capacity=4096, replay_capacity=131072,
+        warmup_steps=warmup, total_steps=chunks * log_every, log_every=log_every,
+        seed=0)
+    bank = ConfigBank(2, 20, capacity=4096, seed=0, device=DEV).fill_device()
+    trainer = DQNTrainer(cfg, bank=bank, device=DEV)
+    rpl = trainer.state.replay
+    writes = []
+    write = rpl.update_priority
+
+    def logged(idx, td, eps):
+        writes.append((idx.clone(), td.clone()))
+        return write(idx, td, eps)
+
+    rpl.update_priority = logged
+    _build.reset_launch_counts()
+    hist = trainer.train(log_fn=lambda m: print("  " + m))["history"]
+    launches = _build.LAUNCHES["actor"]
+    phases = chunks * log_every // K
+    check(launches == phases, f"actor kernel launched {launches}x = {phases} phases")
+    n_upd = trainer.state.updates_done
+    check(n_upd == (phases - 1) * K,
+          f"updates_done {n_upd}: learning from the second phase "
+          f"(threshold {max(warmup, 128) + 2 * 4096} transitions)")
+    idx, td = writes[-1]
+    last = {}
+    for i, v in zip(idx.tolist(), (td + cfg.dqn.per_eps).tolist()):
+        last[i] = v
+    keys = torch.as_tensor(list(last), device=DEV)
+    vals = torch.as_tensor(list(last.values()), device=DEV)
+    check(len(writes) == n_upd and torch.equal(rpl.priority[keys], vals),
+          f"{len(writes)} priority write-backs; the last one's {keys.numel()} slots "
+          "hold |td| + eps (last duplicate wins)")
+    check(all(np.isfinite(r["loss"]) for r in hist), "loss finite")
+    row = hist[-1]
+    upd_ms = learner_ms_per_update(row, cfg.num_envs, log_every)
+    print(f"  last chunk {row['steps_per_s']:.4e} env-steps/s, learner share "
+          f"{row['learner_share']:.3f}, {upd_ms:.3f} ms per update")
+    return {"launches": launches, "env_steps_per_s": row["steps_per_s"],
+            "learner_share": row["learner_share"], "learner_ms_per_update": upd_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -609,6 +1015,10 @@ def main() -> int:
     per_step = phase_trainer_per_step()
     fwd = phase_forward()
     tr_fwd = phase_trainer_forward()
+    learner = phase_learner_checks()
+    flagship = phase_flagship_demo()
+    adaptive = phase_adaptive_bf16()
+    nstep = phase_nstep_per()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -635,6 +1045,10 @@ def main() -> int:
     print(json.dumps({"forward_generator": fwd,
                       "forward_bank_trainer": {
                           k: v for k, v in tr_fwd.items() if k != "launches"}}))
+    print(json.dumps({"learner_checks": learner, "flagship_demo_trainer": flagship,
+                      "adaptive_bf16_trainer": adaptive,
+                      "nstep_per_trainer": {k: v for k, v in nstep.items()
+                                            if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -86,8 +86,17 @@ def test_qnet_init_is_lecun_normal():
         assert abs(w.std() / std - 1.0) < 0.1
         assert np.abs(w).max() <= 2 * std / 0.87962566103423978 + 1e-6
         assert not layer.bias.detach().numpy().any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QNetwork(dueling=True)
+    # the dueling net: the same init on its hidden layers and both heads,
+    # and the fused actor refuses it
+    duel = QNetwork(dueling=True, generator=torch.Generator().manual_seed(0))
+    for layer in (*duel.dense, duel.head.value, duel.head.adv):
+        std = np.sqrt(1.0 / layer.in_features)
+        w = layer.weight.detach().numpy()
+        assert np.abs(w).max() <= 2 * std / 0.87962566103423978 + 1e-6
+        assert not layer.bias.detach().numpy().any()
+    assert duel(torch.zeros(3, 217)).shape == (3, 14)
+    with pytest.raises(ValueError, match="non-dueling"):
+        tactor.mlp_params(duel)
 
 
 def _jax_actor_loop(jnet, jparams, state, bank_cols, bank_pieces, idxs, n_steps):

@@ -21,46 +21,12 @@ from tetris_piclim_tpu_torch.dqn import agent as tagent
 from tetris_piclim_tpu_torch.dqn.replay import ReplayBuffer
 from tetris_piclim_tpu_torch.models.qnet import QNetwork, params_from_flax
 from tetris_piclim_tpu_torch.utils.config import DQNConfig
-from torch_port_helpers import adversarial_boards, pack_np, t
+from torch_port_helpers import filled_replays as _filled
+from torch_port_helpers import t, transitions as _transitions
 
 # small tensors: one intra-op thread per test process, so parallel test
 # workers do not oversubscribe the cores
 torch.set_num_threads(1)
-
-
-def _transitions(rng, n):
-    """One step's worth of packed transition fields (numpy)."""
-    return dict(
-        cols=pack_np(adversarial_boards(rng, n)),
-        cur=rng.integers(0, 7, n).astype(np.int8),
-        nxt=rng.integers(0, 7, n).astype(np.int8),
-        ll=rng.integers(0, 4, n).astype(np.int32),
-        ml=rng.integers(0, 21, n).astype(np.int32),
-        rot=rng.integers(0, 4, n).astype(np.int32),
-        col=rng.integers(0, 10, n).astype(np.int32),
-        reward=rng.choice([-10.0, 0.0, 1.0, 10.0], n).astype(np.float32),
-        done=rng.random(n) < 0.2,
-        n_cols=pack_np(adversarial_boards(rng, n)),
-        n_cur=rng.integers(0, 7, n).astype(np.int8),
-        n_nxt=rng.integers(0, 7, n).astype(np.int8),
-        n_ll=rng.integers(0, 4, n).astype(np.int32),
-        n_ml=rng.integers(0, 21, n).astype(np.int32),
-        n_st=rng.integers(0, 3, n).astype(np.int8),
-    )
-
-
-_jadd = jax.jit(jreplay.replay_add_fields)
-
-
-def _filled(cap, n, writes, seed=0):
-    rng = np.random.default_rng(seed)
-    jr = jreplay.replay_init(cap)
-    tr = ReplayBuffer(cap, "cpu")
-    for _ in range(writes):
-        f = _transitions(rng, n)
-        jr = _jadd(jr, *[jnp.asarray(v) for v in f.values()])
-        tr.add_fields(*[t(v) for v in f.values()])
-    return jr, tr
 
 
 def test_replay_buffers_and_batches_identical():
@@ -185,5 +151,10 @@ def test_select_actions_and_eps_match():
     trot, tcol = tagent.select_actions(tnet, t(obs), eps, **draws)
     np.testing.assert_array_equal(trot.numpy(), np.asarray(jrot))
     np.testing.assert_array_equal(tcol.numpy(), np.asarray(jcol))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tagent.make_optimizer(tnet, DQNConfig(n_step=3))
+    # the learner options build their optimizer: f32 moments for n-step,
+    # bf16 moments for opt_state_bf16
+    opt = tagent.make_optimizer(tnet, DQNConfig(n_step=3, prioritized=True))
+    assert type(opt) is tagent.AmsgradW and opt.mu[0].dtype == torch.float32
+    opt = tagent.make_optimizer(tnet, DQNConfig(opt_state_bf16=True))
+    assert isinstance(opt, tagent.AmsgradBf16)
+    assert all(m.dtype == torch.bfloat16 for m in opt.mu + opt.nu + opt.nu_max)

@@ -12,6 +12,8 @@ import torch
 from tetris_piclim_tpu_torch import cli
 from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
 from tetris_piclim_tpu_torch.gen.bank import ConfigBank
+from tetris_piclim_tpu_torch.models.convnet import ConvQNetwork
+from tetris_piclim_tpu_torch.models.qnet import QNetwork
 from tetris_piclim_tpu_torch.utils.checkpoint import restore_bank, save_bank
 from tetris_piclim_tpu_torch.utils.config import DQNConfig, EnvConfig, TrainConfig
 
@@ -21,11 +23,11 @@ torch.set_num_threads(1)
 
 
 def _cfg(fusion: int, **kw) -> TrainConfig:
+    kw.setdefault("dqn", DQNConfig(batch_size=32))
     return TrainConfig(
-        env=EnvConfig(L=1, M=6), dqn=DQNConfig(batch_size=32),
-        actor_fusion=fusion, num_envs=16, bank_capacity=16,
-        replay_capacity=512, warmup_steps=4, total_steps=16, log_every=8,
-        seed=0, **kw)
+        env=EnvConfig(L=1, M=6), actor_fusion=fusion, num_envs=16,
+        bank_capacity=16, replay_capacity=512, warmup_steps=4, total_steps=16,
+        log_every=8, seed=0, **kw)
 
 
 def _trainer(fusion: int, **kw) -> DQNTrainer:
@@ -72,8 +74,17 @@ def test_checkpoint_roundtrip_resumes_identically(tmp_path):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(0, demo_every=2)
+    """The JAX trainer's refusals stay refusals: demonstrations with PER or
+    with the fused actor, and the fused actor with any net but the plain
+    MLP (tetris_piclim_tpu/dqn/train.py:150-159, 204-218)."""
+    with pytest.raises(ValueError, match="PER"):
+        _trainer(0, demo_every=2, dqn=DQNConfig(batch_size=32, prioritized=True))
+    with pytest.raises(ValueError, match="actor_fusion=0"):
+        _trainer(4, demo_every=2)
+    bank = ConfigBank(1, 6, capacity=16, seed=0, device="cpu").fill_device()
+    for net in (QNetwork(dueling=True), ConvQNetwork(channels=(4, 8))):
+        with pytest.raises(ValueError, match="non-dueling"):
+            DQNTrainer(_cfg(4), bank=bank, net=net, device="cpu")
 
 
 def test_cli_train_smoke(capsys):

@@ -61,3 +61,45 @@ def assert_states_equal(got, want, msg=""):
 def t(x, dtype=None):
     """numpy -> CPU tensor."""
     return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def transitions(rng: np.random.Generator, n: int) -> dict:
+    """One step's worth of packed transition fields (numpy), in the order
+    of ``replay_add_fields``; about one in five is terminal."""
+    return dict(
+        cols=pack_np(adversarial_boards(rng, n)),
+        cur=rng.integers(0, 7, n).astype(np.int8),
+        nxt=rng.integers(0, 7, n).astype(np.int8),
+        ll=rng.integers(0, 4, n).astype(np.int32),
+        ml=rng.integers(0, 21, n).astype(np.int32),
+        rot=rng.integers(0, 4, n).astype(np.int32),
+        col=rng.integers(0, 10, n).astype(np.int32),
+        reward=rng.choice([-10.0, 0.0, 1.0, 10.0], n).astype(np.float32),
+        done=rng.random(n) < 0.2,
+        n_cols=pack_np(adversarial_boards(rng, n)),
+        n_cur=rng.integers(0, 7, n).astype(np.int8),
+        n_nxt=rng.integers(0, 7, n).astype(np.int8),
+        n_ll=rng.integers(0, 4, n).astype(np.int32),
+        n_ml=rng.integers(0, 21, n).astype(np.int32),
+        n_st=rng.integers(0, 3, n).astype(np.int8),
+    )
+
+
+def filled_replays(cap: int, n: int, writes: int, seed: int = 0):
+    """A JAX replay state and a port ``ReplayBuffer`` of capacity ``cap``
+    after the same ``writes`` blocks of ``n`` transitions."""
+    import jax
+    import jax.numpy as jnp
+
+    from tetris_piclim_tpu.dqn import replay as jreplay
+    from tetris_piclim_tpu_torch.dqn.replay import ReplayBuffer
+
+    add = jax.jit(jreplay.replay_add_fields)
+    rng = np.random.default_rng(seed)
+    jr = jreplay.replay_init(cap)
+    tr = ReplayBuffer(cap, "cpu")
+    for _ in range(writes):
+        f = transitions(rng, n)
+        jr = add(jr, *[jnp.asarray(v) for v in f.values()])
+        tr.add_fields(*[t(v) for v in f.values()])
+    return jr, tr

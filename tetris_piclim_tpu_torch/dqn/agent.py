@@ -1,20 +1,23 @@
 """Actor and learner math for the DQN.
 
 Counterpart of ``tetris_piclim_tpu/dqn/agent.py``: epsilon-greedy with
-exponential decay, replay-sampled Huber TD updates (double DQN by default),
-AdamW with amsgrad in optax's order, and a Polyak-averaged target network
-(reference model/train.py:8-27).
+exponential decay, replay-sampled Huber TD updates (double DQN by default;
+1-step or n-step, uniform or prioritized), AdamW with amsgrad in optax's
+order, a Polyak-averaged target network (reference model/train.py:8-27),
+and the demonstration split of the batch with the DQfD margin term.
 
-The optimizer is written out by hand. ``optax.scale_by_amsgrad`` keeps the
-running max of the *bias-corrected* second moment, while
-``torch.optim.AdamW(amsgrad=True)`` keeps the max of the raw moment and
-corrects afterwards, which is a different update.
+The optimizers are written out by hand. ``optax.scale_by_amsgrad``
+(:class:`AmsgradW`) keeps the running max of the *bias-corrected* second
+moment, while ``torch.optim.AdamW(amsgrad=True)`` keeps the max of the raw
+moment and corrects afterwards, which is a different update. The JAX
+package's bf16-moment variant (:class:`AmsgradBf16`) is the latter kind.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,20 +25,7 @@ from torch import nn
 from ..models.qnet import NUM_COL, NUM_ROT, q_ops
 from ..ops.actor import epsilon
 from ..utils.config import DQNConfig
-from .replay import Batch, ReplayBuffer
-
-
-def check_supported(cfg: DQNConfig) -> None:
-    """Raise on learner options the port has not ported yet."""
-    if cfg.n_step != 1 or cfg.prioritized:
-        raise NotImplementedError(
-            "n-step returns and prioritized replay are not ported yet "
-            "(ROADMAP.md, queue A)"
-        )
-    if cfg.opt_state_bf16:
-        raise NotImplementedError(
-            "bf16 optimizer moments are not ported yet (ROADMAP.md, queue A)"
-        )
+from .replay import Batch, ReplayBuffer, cat_batches
 
 
 def eps_schedule(step: int, cfg: DQNConfig) -> float:
@@ -68,10 +58,13 @@ def select_actions(net: nn.Module, obs: torch.Tensor, eps: float, *,
 
 def td_loss(net: nn.Module, target_net: nn.Module, batch: Batch,
             cfg: DQNConfig) -> tuple[torch.Tensor, dict]:
-    """Huber TD loss (mean over the batch) on the online net's Q.
+    """Huber TD loss (mean over the batch, each sample scaled by its
+    importance weight under PER) on the online net's Q.
 
     ``double_dqn`` selects next actions with the online net and evaluates
-    them with the target net; otherwise the max over the target net."""
+    them with the target net; otherwise the max over the target net. The
+    bootstrap is discounted by ``batch.discount`` (gamma^(k*+1) for n-step
+    batches), else by ``cfg.gamma``."""
     q = net(batch.obs)
     ops = q_ops(q.shape[-1])
     q_chosen = ops.gather(q, batch.rot, batch.col)
@@ -82,13 +75,19 @@ def td_loss(net: nn.Module, target_net: nn.Module, batch: Batch,
             next_val = ops.gather(q_next_target, a_rot, a_col)
         else:
             next_val = ops.max_value(q_next_target)
-        target = batch.reward + cfg.gamma * (1.0 - batch.done.float()) * next_val
-    td = q_chosen - target
-    loss = F.huber_loss(q_chosen, target, delta=cfg.huber_delta)
+        disc = cfg.gamma if batch.discount is None else batch.discount
+        target = batch.reward + disc * (1.0 - batch.done.float()) * next_val
+    td = (q_chosen - target).detach()
+    per_sample = F.huber_loss(q_chosen, target, reduction="none",
+                              delta=cfg.huber_delta)
+    if batch.weight is not None:
+        per_sample = batch.weight * per_sample
+    loss = per_sample.mean()
     aux = {
         "loss": loss.detach(),
         "q_mean": q_chosen.detach().mean(),
-        "td_abs": td.detach().abs().mean(),
+        "td_abs": td.abs().mean(),
+        "td_abs_per_sample": td.abs(),
     }
     return loss, aux
 
@@ -103,6 +102,8 @@ class AmsgradW:
         p += -lr * (mu_hat / (sqrt(nu_max + eps_root) + eps) + wd * p)
     """
 
+    state_dtype = torch.float32
+
     def __init__(self, params, lr: float, weight_decay: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  eps_root: float = 0.0):
@@ -110,7 +111,8 @@ class AmsgradW:
         self.lr, self.wd = lr, weight_decay
         self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
         self.count = 0
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        zeros = lambda: [torch.zeros_like(p, dtype=self.state_dtype)  # noqa: E731
+                         for p in self.params]
         self.mu, self.nu, self.nu_max = zeros(), zeros(), zeros()
 
     @torch.no_grad()
@@ -144,11 +146,58 @@ class AmsgradW:
                 d.copy_(s)
 
 
+class AmsgradBf16(AmsgradW):
+    """The JAX package's ``scale_by_amsgrad_bf16`` in the same optax chain:
+    AMSGrad whose moments (mu, nu, nu_max) are stored in bfloat16.
+
+    Arithmetic is float32; only the stores round (to nearest even, as
+    ``Tensor.copy_`` into a bf16 buffer does). Unlike :class:`AmsgradW` the
+    running max is of the raw second moment, corrected afterwards:
+
+        mu = b1 mu + (1-b1) g;   nu = b2 nu + (1-b2) g g
+        nu_max = max(nu_max, nu)
+        p += -lr * ((mu / c1) / (sqrt(nu_max / c2 + eps_root) + eps) + wd p)
+
+    with ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` in float32."""
+
+    state_dtype = torch.bfloat16
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+        c1 = float(1.0 - f32(self.b1) ** self.count)
+        c2 = float(1.0 - f32(self.b2) ** self.count)
+        for p, mu, nu, nu_max in zip(self.params, self.mu, self.nu, self.nu_max):
+            g = p.grad.float()
+            mu_f = self.b1 * mu.float() + (1.0 - self.b1) * g
+            nu_f = self.b2 * nu.float() + (1.0 - self.b2) * g * g
+            nu_max_f = torch.maximum(nu_max.float(), nu_f)
+            u = (mu_f / c1) / ((nu_max_f / c2 + self.eps_root).sqrt() + self.eps)
+            p.add_(u + self.wd * p, alpha=-self.lr)
+            mu.copy_(mu_f)
+            nu.copy_(nu_f)
+            nu_max.copy_(nu_max_f)
+
+
 def make_optimizer(net: nn.Module, cfg: DQNConfig) -> AmsgradW:
     """AdamW with amsgrad (reference model/train.py:27; decoupled weight
-    decay 1e-2, the torch AdamW default)."""
-    check_supported(cfg)
-    return AmsgradW(net.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
+    decay 1e-2, the torch AdamW default); ``cfg.opt_state_bf16`` gives the
+    bf16-moment variant."""
+    cls = AmsgradBf16 if cfg.opt_state_bf16 else AmsgradW
+    return cls(net.parameters(), lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+
+def per_beta_schedule(step: int, cfg: DQNConfig, total_steps: int) -> float:
+    """The PER importance exponent, annealed linearly from ``per_beta`` to
+    1 over ``per_beta_steps`` env steps (0: ``total_steps``, the config's
+    run length), in float32 as the JAX schedule computes it."""
+    f32 = np.float32
+    if not cfg.per_beta_anneal:
+        return float(f32(cfg.per_beta))
+    horizon = cfg.per_beta_steps if cfg.per_beta_steps > 0 else total_steps
+    frac = min(f32(step) / f32(max(horizon, 1)), f32(1.0))
+    return float(f32(cfg.per_beta) + f32(1.0 - cfg.per_beta) * frac)
 
 
 @torch.no_grad()
@@ -160,15 +209,52 @@ def polyak(target_net: nn.Module, net: nn.Module, tau: float) -> None:
 
 def learner_update(net: nn.Module, target_net: nn.Module, opt: AmsgradW,
                    rpl: ReplayBuffer, cfg: DQNConfig, *,
+                   step_gap: int = 1, beta: Optional[float] = None,
                    j: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> dict:
-    """One replay-sampled TD update + Polyak target step, in place. ``j``
-    [batch] are the sample offsets (drawn from ``generator`` when None).
-    Returns the loss terms as device tensors (no host sync)."""
-    batch = rpl.sample(cfg.batch_size, j=j, generator=generator)
+                   generator: Optional[torch.Generator] = None,
+                   demo: Optional[ReplayBuffer] = None, demo_n: int = 0,
+                   demo_j: Optional[torch.Tensor] = None,
+                   demo_margin: float = 0.0,
+                   demo_margin_weight: float = 1.0) -> dict:
+    """One replay-sampled TD update + Polyak target step, in place; under
+    PER the new ``|td|`` priorities are written back.
+
+    The sample follows ``cfg`` (1-step or n-step, uniform or prioritized);
+    ``step_gap`` is the ring stride between consecutive transitions of one
+    env (num_envs). ``j`` gives a uniform draw's offsets; without it, and
+    always under PER, the draw comes from ``generator``.
+
+    With ``demo`` and ``demo_n > 0``, ``demo_n`` of the ``cfg.batch_size``
+    rows are a uniform 1-step sample of the demonstration buffer (offsets
+    ``demo_j``), after the env rows. ``demo_margin > 0`` adds the DQfD
+    large-margin term on them (Hester et al. 2018, eq. 2),
+    ``mean(max_a [Q(s,a) + margin [a != a_E]] - Q(s, a_E))`` times
+    ``demo_margin_weight``, from one more forward of the demo observations.
+
+    Returns the loss terms as device tensors (no host sync); ``loss`` is
+    the TD loss alone."""
+    demo_on = demo is not None and demo_n > 0
+    n_env = cfg.batch_size - demo_n if demo_on else cfg.batch_size
+    batch, idx0 = rpl.sample_ext(
+        n_env, gamma=cfg.gamma, n_step=cfg.n_step, step_gap=step_gap,
+        prioritized=cfg.prioritized, alpha=cfg.per_alpha,
+        beta=cfg.per_beta if beta is None else beta, j=j,
+        generator=generator)
+    if demo_on:
+        demo_batch = demo.sample(demo_n, j=demo_j, generator=generator)
+        batch = cat_batches(batch, demo_batch, cfg.gamma)
     opt.zero_grad()
     loss, aux = td_loss(net, target_net, batch, cfg)
+    if demo_on and demo_margin > 0.0:
+        q_d = net(demo_batch.obs)
+        ops = q_ops(q_d.shape[-1])
+        j_e = (ops.margin_max(q_d, demo_batch.rot, demo_batch.col, demo_margin)
+               - ops.gather(q_d, demo_batch.rot, demo_batch.col)).mean()
+        aux["demo_margin_loss"] = j_e.detach()
+        loss = loss + demo_margin_weight * j_e
     loss.backward()
     opt.step()
     polyak(target_net, net, cfg.tau)
+    if cfg.prioritized:
+        rpl.update_priority(idx0, aux["td_abs_per_sample"][:n_env], cfg.per_eps)
     return aux

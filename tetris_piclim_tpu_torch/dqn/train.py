@@ -4,35 +4,47 @@ Counterpart of ``tetris_piclim_tpu/dqn/train.py``. A chunk of ``n`` env
 steps runs one of two paths:
 
 * the per-step path (``actor_fusion=0``): observe -> epsilon-greedy on the
-  Q-network -> ``bitboard.step_autoreset_batch`` -> packed replay write ->
+  Q-network (any net: the MLP, dueling or not, or ``models/convnet.py``)
+  -> ``bitboard.step_autoreset_batch`` -> packed replay write ->
   ``updates_per_step`` learner updates once the replay holds the warmup;
-* the fused path (``actor_fusion=K``): per phase, the fused actor
-  (``ops/actor.py``, the CUDA kernel on the GPU) runs K env steps with the
-  policy frozen, resetting from a random KB-row window of the bank
-  (KB = min(256, B)); then K replay writes and ``K * updates_per_step``
-  learner updates.
+* the fused path (``actor_fusion=K``, the plain MLP only): per phase, the
+  fused actor (``ops/actor.py``, the CUDA kernel on the GPU) runs K env
+  steps with the policy frozen, resetting from a random KB-row window of
+  the bank (KB = min(256, B)); then K replay writes and
+  ``K * updates_per_step`` learner updates.
+
+The learner samples 1-step or n-step returns, uniformly or by priority
+(``dqn/replay.py``). With ``demo_every > 0`` a demonstration buffer, rebuilt
+every ``demo_every`` chunks from the beam prover's recorded solutions
+(:meth:`DQNTrainer._refresh_demo`), supplies ``demo_ratio`` of every batch
+(per-step path only, not with PER, as in JAX). ``train(adaptive_share=True)``
+steers the bank's forward share from two probe banks.
 
 PyTorch runs eagerly, so the chunk is a Python loop; every metric stays a
 device tensor until the chunk ends, and the replay ring's position is a host
-int, so the loop waits on the device once per chunk (logging). Random draws
-come from a generator on the device; scalar draws the host needs (window
-offsets, kernel seeds) from a CPU generator, so they cost no device sync.
+int, so the loop waits on the device once per chunk (logging), once per
+bank refresh and once per demo refresh. Random draws come from a generator
+on the device; scalar draws the host needs (window offsets, kernel seeds)
+from a CPU generator, so they cost no device sync.
 
-Not ported yet (see ROADMAP.md): demonstrations, n-step and prioritized
-replay, bf16 moments and dueling heads (they raise), adaptive share, host
-refresh and multi-device meshes.
+Not ported yet (see ROADMAP.md): the curriculum trainer, the host
+generators' refresh (``refresh_bank``), the array backend and multi-device
+meshes.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..engine import RUNNING
+from ..gen import device_forward
 from ..gen.bank import ConfigBank
 from ..models.qnet import QNetwork, q_ops
 from ..ops import bitboard
@@ -46,8 +58,8 @@ from .replay import ReplayBuffer
 
 @dataclasses.dataclass
 class TrainState:
-    net: QNetwork
-    target_net: QNetwork
+    net: nn.Module
+    target_net: nn.Module
     opt: agent_lib.AmsgradW
     replay: ReplayBuffer
     env: bitboard.PackedState
@@ -94,6 +106,33 @@ class _Clock:
         return ms
 
 
+def _failure_share(win_carve: float, win_forward: float) -> float:
+    """The forward family's share of the two failure rates, each floored
+    by 0.05 so that both families stay sampled when one saturates."""
+    return (1.0 - win_forward + 0.05) / (
+        (1.0 - win_carve) + (1.0 - win_forward) + 0.10)
+
+
+def adapt_share(share: float, win_carve: float, win_forward: float) -> float:
+    """One adaptive-share step (rule v1): move the forward share toward the
+    weaker family in proportion to the failure rates, EMA-smoothed (alpha
+    0.5) and clipped to [0.1, 0.9]."""
+    target = _failure_share(win_carve, win_forward)
+    return min(0.9, max(0.1, 0.5 * share + 0.5 * target))
+
+
+def adapt_share_v2(share: float, win_carve: float, win_forward: float,
+                   prior: float = 0.25) -> float:
+    """Prior-anchored rule (v2): the failure-rate target only while the
+    forward probe is below half the carve probe, else decay toward
+    ``prior``; same EMA and clip as :func:`adapt_share`."""
+    if win_forward < 0.5 * win_carve:
+        target = _failure_share(win_carve, win_forward)
+    else:
+        target = prior
+    return min(0.9, max(0.1, 0.5 * share + 0.5 * target))
+
+
 def height_at(device_height, done_steps: int, total_steps: int) -> int:
     """The forward generator's ``initial_height_max`` at ``done_steps``:
     ``device_height=(h0, h1)`` anneals linearly from h0 to h1 over the run;
@@ -107,24 +146,31 @@ def height_at(device_height, done_steps: int, total_steps: int) -> int:
 
 class DQNTrainer:
     def __init__(self, cfg: TrainConfig, bank: Optional[ConfigBank] = None,
-                 net: Optional[QNetwork] = None, device="cuda"):
+                 net: Optional[nn.Module] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        agent_lib.check_supported(cfg.dqn)
-        if cfg.demo_every > 0:
-            raise NotImplementedError(
-                "demonstration-augmented training is not ported yet "
-                "(ROADMAP.md, queue A)"
-            )
         if net is None:
             net = QNetwork(generator=torch.Generator().manual_seed(cfg.seed))
+        if cfg.actor_fusion > 0 and not (isinstance(net, QNetwork)
+                                         and not net.dueling):
+            raise ValueError(
+                "actor_fusion requires the plain (non-dueling) MLP QNetwork: "
+                "the fused actor kernel runs that exact forward")
+        if cfg.demo_every > 0:
+            if cfg.dqn.prioritized:
+                raise ValueError(
+                    "demo-augmented training is incompatible with PER "
+                    "(priority updates index the env buffer only)")
+            if cfg.actor_fusion > 0:
+                raise ValueError(
+                    "demo-augmented training requires the per-step chunk "
+                    "(actor_fusion=0)")
         if bank is None:
             bank = ConfigBank(cfg.env.L, cfg.env.M, capacity=cfg.bank_capacity,
                               seed=cfg.seed, device=self.device).fill_device()
         self.bank = bank
         net = net.to(self.device)
-        target = QNetwork(joint=net.joint).to(self.device)
-        target.load_state_dict(net.state_dict())
+        target = copy.deepcopy(net)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         idx = torch.randint(0, bank.capacity, (cfg.num_envs,), generator=gen,
                             device=self.device)
@@ -137,6 +183,13 @@ class DQNTrainer:
             env=env, gen=gen,
             host_gen=torch.Generator().manual_seed(cfg.seed + 1),
         )
+        # the demonstration buffer lives outside TrainState, so checkpoints
+        # resume with demos on or off
+        self._demo: Optional[ReplayBuffer] = None
+        self._demo_n = 0
+        if cfg.demo_every > 0:
+            self._demo = ReplayBuffer(cfg.demo_capacity, self.device)
+            self._demo_n = max(1, int(round(cfg.dqn.batch_size * cfg.demo_ratio)))
         self._clock = _Clock(self.device)
 
     # -- chunks -----------------------------------------------------------------
@@ -148,14 +201,23 @@ class DQNTrainer:
                 + won.float() * e.win_reward + lost.float() * e.loss_reward)
 
     def _learn(self, n_upd: int, m: dict) -> None:
-        """``n_upd`` learner updates once the replay holds the warmup."""
-        ts, dqn = self.state, self.cfg.dqn
-        if ts.replay.size < max(self.cfg.warmup_steps, dqn.batch_size):
+        """``n_upd`` learner updates once the replay holds the warmup and
+        every sampled n-step chain is written ((n-1) * num_envs newer
+        transitions)."""
+        ts, cfg, dqn = self.state, self.cfg, self.cfg.dqn
+        min_size = (max(cfg.warmup_steps, dqn.batch_size)
+                    + (dqn.n_step - 1) * cfg.num_envs)
+        if ts.replay.size < min_size:
             return
+        beta = agent_lib.per_beta_schedule(ts.global_step, dqn, cfg.total_steps)
         start = self._clock.mark()
         for _ in range(n_upd):
             aux = agent_lib.learner_update(
-                ts.net, ts.target_net, ts.opt, ts.replay, dqn, generator=ts.gen)
+                ts.net, ts.target_net, ts.opt, ts.replay, dqn,
+                step_gap=cfg.num_envs, beta=beta, generator=ts.gen,
+                demo=self._demo, demo_n=self._demo_n,
+                demo_margin=cfg.demo_margin,
+                demo_margin_weight=cfg.demo_margin_weight)
             m["loss_sum"] += aux["loss"]
             m["q_mean_sum"] += aux["q_mean"]
         self._clock.add(start, self._clock.mark())
@@ -230,35 +292,136 @@ class DQNTrainer:
             return self._chunk_fused(n_steps)
         return self._chunk_plain(n_steps)
 
+    # -- demonstration buffer --------------------------------------------------
+
+    @torch.no_grad()
+    def _demo_rollout(self, boards: torch.Tensor, pieces: torch.Tensor,
+                      sol_rot: torch.Tensor, sol_loc: torch.Tensor,
+                      sol_len: torch.Tensor) -> None:
+        """Replay recorded winning solutions through the env and rewrite the
+        demonstration buffer with the resulting transitions.
+
+        Step t of candidate d is a demonstration while ``t < sol_len[d]``
+        and the env still runs (a prefix of each column; unproven
+        candidates have ``sol_len == 0``); finished envs are frozen. Each
+        row stores the Monte-Carlo return-to-go ``R_t = r_t + gamma
+        R_{t+1}`` (float32, a reverse scan) with ``done`` True, so the
+        learner regresses ``Q(s_t, a_t)`` on it and never bootstraps from
+        an expert state. The buffer's ``demo_capacity`` rows are taken at
+        an even stride over the valid transitions, which come first in a
+        stable sort of ``~valid`` (t-major), cycled when there are fewer.
+        With no valid transition the buffer is left as it was; that test
+        waits for the device (one sync per refresh)."""
+        e, gamma = self.cfg.env, self.cfg.dqn.gamma
+        D, M = sol_rot.shape
+        K = self._demo.capacity
+        env = bitboard.make_state_batch(boards, pieces, e.L, e.M)
+        steps = []
+        for t in range(M):
+            rot, col = sol_rot[:, t].long(), sol_loc[:, t].long()
+            valid = (env.status == RUNNING) & (t < sol_len)
+            res = bitboard.step(env, rot, col)
+            reward = self._reward(res.lines_delta, res.done, res.won)
+            steps.append((*bitboard.packed_fields(env)[:5], rot, col, reward,
+                          *bitboard.packed_fields(res.state), valid))
+            env = bitboard.state_where(env.status != RUNNING, env, res.state)
+        fields = [torch.stack(f) for f in zip(*steps)]   # each [M, D, ...]
+        valid, reward = fields[-1], fields[7]
+        cont = torch.cat([valid[1:], torch.zeros_like(valid[:1])]).float()
+        returns = torch.empty_like(reward)
+        r_next = torch.zeros((D,), dtype=torch.float32, device=self.device)
+        for t in range(M - 1, -1, -1):
+            r_next = reward[t] + gamma * r_next * cont[t]
+            returns[t] = r_next
+        fields[7] = returns
+        valid = valid.reshape(M * D)
+        n_valid = int(valid.sum())
+        if n_valid == 0:
+            return
+        order = torch.sort((~valid).to(torch.uint8), stable=True).indices
+        pos = torch.arange(K, device=self.device) * n_valid // K
+        idx = order[pos % n_valid]
+        rows = [f.reshape(M * D, *f.shape[2:])[idx] for f in fields[:-1]]
+        done = torch.ones((K,), dtype=torch.bool, device=self.device)
+        self._demo.add_fields(*rows[:8], done, *rows[8:])
+
+    def _refresh_demo(self, seed: int, initial_height_max: int = 4,
+                      beam_width: int = 8) -> None:
+        """Generate and prove ``demo_rows`` fresh forward-family candidates
+        (from ``seed``) and rebuild the demonstration buffer from their
+        recorded winning solutions."""
+        cfg = self.cfg
+        fb = device_forward.generate_batch_device(
+            cfg.demo_rows, cfg.env.L, cfg.env.M, initial_height_max, beam_width,
+            generator=torch.Generator(device=self.device).manual_seed(seed),
+            device=self.device)
+        self._demo_rollout(fb.boards, fb.pieces, fb.rotations, fb.locations,
+                           fb.n_moves)
+
     # -- host loop ----------------------------------------------------------------
 
     def train(self, total_steps: Optional[int] = None, log_fn=print,
               device_refresh_every: int = 0,
               device_forward_fraction: float = 0.0,
               device_beam_width: int = 8,
-              device_height: Optional[tuple[int, int]] = None) -> dict:
+              device_height: Optional[tuple[int, int]] = None,
+              adaptive_share: bool = False, adapt_every: int = 20,
+              adapt_episodes: int = 1024, adapt_rule: str = "v2") -> dict:
         """Run ``total_steps`` env steps in chunks of ``log_every``, logging
         one row per chunk. ``device_refresh_every=k`` regenerates the bank
         on the device every k chunks (fresh seed each time), inside the
-        next chunk's timer: carve rows only, or with
-        ``device_forward_fraction > 0`` the whole bank as that share of
-        proven forward rows (beam ``device_beam_width``) over carves.
-        ``device_height=(h0, h1)`` anneals the forward generator's
-        ``initial_height_max`` from h0 to h1 over this call's steps."""
+        next chunk's timer: carve rows only, or with a forward share > 0
+        the whole bank as that share of proven forward rows (beam
+        ``device_beam_width``) over carves. ``device_height=(h0, h1)``
+        anneals the forward generator's ``initial_height_max`` from h0 to
+        h1 over this call's steps (bank and demo refreshes).
+
+        ``adaptive_share=True``: every ``adapt_every`` chunks the greedy
+        policy plays ``adapt_episodes`` episodes on each of two fixed probe
+        banks (512 rows each: carves from seed ``cfg.seed + 7001``, proven
+        forward rows from ``cfg.seed + 7002``), and :func:`adapt_share_v2`
+        (``adapt_rule="v2"``) or :func:`adapt_share` (``"v1"``) sets the
+        forward share of the following refreshes.
+
+        Seeds come from ``np.random.default_rng(cfg.seed + 0xBA4E)`` in the
+        JAX trainer's order within a chunk: two for the probes, one for the
+        bank refresh, one for the demo refresh."""
         cfg = self.cfg
         total = total_steps if total_steps is not None else cfg.total_steps
         chunk = max(1, min(cfg.log_every, total))
         done_steps, since_ckpt, chunk_i = 0, 0, 0
         history = []
         bank_keys = np.random.default_rng(cfg.seed + 0xBA4E)
+        draw = lambda: int(bank_keys.integers(2**31 - 1))  # noqa: E731
+        share = float(device_forward_fraction)
+        if adaptive_share:
+            # fixed probe banks under their own seeds: not the holdout, not
+            # the churning training bank
+            L, M, dev = cfg.env.L, cfg.env.M, self.device
+            probe_c = ConfigBank(L, M, capacity=512, seed=cfg.seed + 7001,
+                                 device=dev).fill_device(forward_fraction=0.0)
+            probe_f = ConfigBank(L, M, capacity=512, seed=cfg.seed + 7002,
+                                 device=dev).fill_device(
+                forward_fraction=1.0, beam_width=device_beam_width)
         t0 = time.perf_counter()
         while done_steps < total:
+            probe = None
+            if adaptive_share and chunk_i and chunk_i % adapt_every == 0:
+                seed_c, seed_f = draw(), draw()
+                wc = self.evaluate(adapt_episodes, seed=seed_c, bank=probe_c)["win_rate"]
+                wf = self.evaluate(adapt_episodes, seed=seed_f, bank=probe_f)["win_rate"]
+                rule = adapt_share_v2 if adapt_rule == "v2" else adapt_share
+                share = rule(share, wc, wf)
+                probe = {"probe_carve": wc, "probe_forward": wf}
             if device_refresh_every and chunk_i and chunk_i % device_refresh_every == 0:
                 self.bank.refresh_device(
-                    seed=int(bank_keys.integers(2**31 - 1)),
-                    forward_fraction=device_forward_fraction,
+                    seed=draw(), forward_fraction=share,
                     beam_width=device_beam_width,
                     initial_height_max=height_at(device_height, done_steps, total))
+            if self._demo is not None and chunk_i % cfg.demo_every == 0:
+                # runs at chunk 0 too, so the buffer is full when learning starts
+                self._refresh_demo(draw(), height_at(device_height, done_steps, total),
+                                   device_beam_width)
             chunk_i += 1
             n = min(chunk, total - done_steps)
             if cfg.actor_fusion > 0:
@@ -287,12 +450,22 @@ class DQNTrainer:
                 "steps_per_s": n * cfg.num_envs / max(dt, 1e-9),
                 "learner_share": learner_ms / max(dt * 1e3, 1e-9),
             }
+            if device_refresh_every and (adaptive_share or device_height is not None):
+                row["forward_share"] = round(share, 4)
+            if probe is not None:
+                row.update(probe)
             history.append(row)
             if log_fn is not None:
+                extra = ""
+                if "forward_share" in row:
+                    extra += f" share={row['forward_share']:.2f}"
+                if probe is not None:
+                    extra += (f" probe_c={probe['probe_carve']:.3f}"
+                              f" probe_f={probe['probe_forward']:.3f}")
                 log_fn(
                     f"[{row['step']:>7}] env_steps={row['env_steps']:.2e} "
                     f"win_rate={row['win_rate']:.3f} loss={row['loss']:.4f} "
-                    f"eps={row['eps']:.3f} sps={row['steps_per_s']:.3e}"
+                    f"eps={row['eps']:.3f} sps={row['steps_per_s']:.3e}{extra}"
                 )
             since_ckpt += n
             if cfg.checkpoint_dir and cfg.checkpoint_every > 0 \
@@ -339,9 +512,9 @@ class DQNTrainer:
         env = bitboard.make_state_batch(
             bank.cols[idx], bank.pieces[idx], cfg.env.L, cfg.env.M)
         net = self.state.net
-        ops = q_ops(net.head_dim)
         for _ in range(cfg.env.M + 1):
-            rot, col = ops.greedy(net(bitboard.observe(env)))
+            q = net(bitboard.observe(env))
+            rot, col = q_ops(q.shape[-1]).greedy(q)
             res = bitboard.step(env, rot, col)
             env = bitboard.state_where(env.status != RUNNING, env, res.state)
         status = env.status.cpu().numpy()

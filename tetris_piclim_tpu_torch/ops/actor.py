@@ -71,11 +71,13 @@ def mlp_params(net: QNetwork) -> list[torch.Tensor]:
     float32 parameters in ``nn.Linear``'s [out, in] layout, read in place.
     Nothing is copied, transposed or padded (the kernel handles layer 1's
     217-float rows itself), so a call costs no device work."""
-    layers = list(net.dense)
+    layers = list(getattr(net, "dense", []))
     widths = [(lay.in_features, lay.out_features) for lay in layers]
-    if widths[:-1] != [(OBS_DIM, HID)] + [(HID, HID)] * (N_HIDDEN - 1) \
+    if getattr(net, "dueling", True) \
+            or widths[:-1] != [(OBS_DIM, HID)] + [(HID, HID)] * (N_HIDDEN - 1) \
             or widths[-1][0] != HID:
-        raise ValueError("the fused actor runs the 217 -> 4x128 -> head MLP")
+        raise ValueError("the fused actor runs the plain (non-dueling) "
+                         "217 -> 4x128 -> head MLP")
     out = []
     for lay in layers:
         for p in (lay.weight, lay.bias):

@@ -1,8 +1,10 @@
 """Configuration dataclasses — every knob the reference hardcodes, surfaced.
 
 A copy of ``tetris_piclim_tpu/utils/config.py`` (same fields and defaults,
-so a config JSON serves both packages). The port rejects the fields of
-features it has not ported yet (see ``dqn/train.py``).
+so a config JSON serves both packages). Every DQN and demonstration field
+is ported. Not read by the port yet: ``bank_carve_fraction`` (the host
+bank fill; the port's default bank is the device carver) and
+``parity_translate`` (the host producers), both ROADMAP.md item A15.
 
 The reference scatters its configuration across constructor kwargs
 (game/tetris.py:141), a "MODIFIABLE PARAMETERS" block
@@ -54,7 +56,7 @@ class DQNConfig:
     weight_decay: float = 1e-2  # torch AdamW default
     double_dqn: bool = True     # reduces overestimation; off → vanilla DQN
     huber_delta: float = 1.0
-    # store AdamW moment state (m, v, v_max) in bfloat16 (not ported)
+    # store AdamW moment state (m, v, v_max) in bfloat16
     opt_state_bf16: bool = False
     # extensions beyond the reference's declared algorithm (each default-off
     # so the reference-spec hyperparameters above stand alone):
@@ -91,10 +93,10 @@ class TrainConfig:
     seed: int = 0
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0   # 0 = disabled
-    # demonstration-augmented training (not ported): every demo_every chunks,
+    # demonstration-augmented training: every demo_every chunks,
     # refresh a persistent demo replay buffer with transitions from PROVEN
     # winning trajectories (the beam prover's recorded solutions,
-    # gen/jax_forward.py sol_rot/sol_loc) and draw demo_ratio of every
+    # gen/device_forward.py rotations/locations) and draw demo_ratio of every
     # learner batch from it. 0 = off. The buffer lives OUTSIDE TrainState,
     # so checkpoints stay resume-compatible either way.
     demo_every: int = 0
