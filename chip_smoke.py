@@ -29,10 +29,28 @@ drives the port's two paths through the entry points a user calls:
 6. round 5's flagship demo recipe at full width (L=10/M=30, conv (32,64) +
    dueling + joint, 2048 envs, bank 4096, 4 updates per step, 25% forward
    rows refreshed every chunk, height 8:4, 1024 demo rows rebuilt every
-   chunk, margin 0.8), then a 2048-row holdout and a checkpoint round trip;
+   chunk, margin 0.8), then a 2048-row holdout (its forward rows all from
+   the device prover: the host DFS solver proves almost nothing at L=10 and
+   took a minute) and a checkpoint round trip;
 7. the adaptive share (rule v2) with bf16 moments at L=5/M=25 on the same
    flags, every logged share held against the controller;
-8. the fused-actor trainer with 3-step returns and prioritized replay.
+8. the fused-actor trainer with 3-step returns and prioritized replay;
+9. the host generators: 256 host carves with recorded solutions uploaded,
+   read back word for word, and replayed to WIN by the card's step;
+10. the trainer with no bank given, as ``cli train`` runs by default: the
+    host fill of 1024 rows (75% carves, 25% forward games proven by the DFS
+    solver; the carve rows read back against the host carver), then
+    training with ``actor_fusion=8`` while the producer processes swap
+    fresh rows into the live bank (``refresh_bank``), then a few chunks
+    with the refresh off for comparison;
+11. the array engine on the card against the bitboard step, word for word;
+12. the curriculum trainer at full width (levels 1:10, 2:15, 3:20, 1024
+    envs, 1024 rows per level, replay 131072): the card's
+    ``step_autoreset_curriculum`` against the CPU's word for word, a few
+    chunks, and the per-level greedy evaluation;
+13. ``cli play`` (the recorded solution, and greedy from the phase-10
+    checkpoint on the card) and ``cli bench`` (the rollout kernel at the
+    benchmark shape, beside phase 1's rate).
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -44,7 +62,12 @@ card, no network; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import multiprocessing
+import random
 import shutil
 import subprocess
 import sys
@@ -54,13 +77,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tetris_piclim_tpu_torch import cli
+from tetris_piclim_tpu_torch import engine as array_engine
 from tetris_piclim_tpu_torch.dqn import agent as agent_lib
+from tetris_piclim_tpu_torch.dqn.curriculum_train import CurriculumTrainer
 from tetris_piclim_tpu_torch.dqn.replay import ReplayBuffer
 from tetris_piclim_tpu_torch.dqn.train import DQNTrainer, adapt_share_v2
+from tetris_piclim_tpu_torch.gen import curriculum as cur_lib
 from tetris_piclim_tpu_torch.gen import device_forward
 from tetris_piclim_tpu_torch.gen.bank import (
-    FAMILY_CARVE, FAMILY_FORWARD, ConfigBank, make_holdout_bank,
+    FAMILY_CARVE, FAMILY_FORWARD, ConfigBank, pack_host_rows, make_holdout_bank,
 )
+from tetris_piclim_tpu_torch.gen.carver import CarvingGenerator
 from tetris_piclim_tpu_torch.models import convnet
 from tetris_piclim_tpu_torch.models.qnet import QNetwork
 from tetris_piclim_tpu_torch.ops import _build
@@ -878,7 +906,7 @@ def phase_flagship_demo() -> dict:
     sync()
     t0 = time.perf_counter()
     holdout = make_holdout_bank(L, M, 2048, train_bank=trainer.bank,
-                                forward_seed_budget=100, device=DEV)
+                                forward_seed_budget=0, device=DEV)
     sync()
     holdout_s = time.perf_counter() - t0
     fams = holdout.family_counts
@@ -995,10 +1023,232 @@ def phase_nstep_per() -> dict:
             "learner_share": row["learner_share"], "learner_ms_per_update": upd_ms}
 
 
+# -- the host generators, the default bank, the array engine, the curriculum --
+
+def phase_host_carves() -> dict:
+    """Host carves with recorded solutions, uploaded as the bank uploads its
+    rows, read back, and replayed to WIN by the card's step."""
+    L, M, n = 2, 20, 256
+    print(f"host carver: {n} carves with solutions at L={L}/M={M}, uploaded")
+    rng = random.Random(7)
+    t0 = time.perf_counter()
+    carves = [CarvingGenerator(L, M, rng=rng, record_solution=True).generate()
+              for _ in range(n)]
+    carve_s = time.perf_counter() - t0
+    cols_h, pieces_h = pack_host_rows([(b, p) for b, p, _ in carves], M + 1)
+    cols, pieces = cols_h.to(DEV), pieces_h.to(DEV)
+    boards = np.stack([b for b, _, _ in carves])
+    check(torch.equal(cols.cpu(), cols_h) and torch.equal(pieces.cpu(), pieces_h)
+          and np.array_equal(bb.unpack_board(cols).cpu().numpy(), boards),
+          "upload round trip: packed rows and unpacked boards word for word")
+    moves = np.zeros((n, M, 2), np.int64)
+    n_moves = torch.as_tensor([len(sol) for _, _, sol in carves], device=DEV)
+    for i, (_, _, sol) in enumerate(carves):
+        moves[i, :len(sol)] = sol
+    moves = torch.as_tensor(moves, device=DEV)
+    st = replay_status(cols, pieces, moves[..., 0], moves[..., 1], L, M)
+    check(bool((st.status == 1).all()) and bool((st.lines_cleared >= L).all())
+          and torch.equal(st.moves_used, n_moves.to(torch.int32)),
+          f"all {n} recorded solutions replay to WIN on the card in their "
+          f"{int(n_moves.min())}..{int(n_moves.max())} moves")
+    print(f"  {carve_s / n * 1e3:.3f} ms per host carve")
+    return {"host_carve_ms": carve_s / n * 1e3}
+
+
+def phase_default_bank_trainer() -> dict:
+    """The trainer with no bank given (the host fill), training with the
+    fused actor while the producer processes refresh the bank (counted)."""
+    K, chunks, log_every, cap = 8, 16, 128, 1024
+    print(f"default-bank trainer: L=2 M=20, 4096 envs, host-filled bank {cap} "
+          "(75% carves), replay 131072, batch 128, actor_fusion 8, refresh_bank")
+    cfg = dataclasses.replace(train_config(K, chunks, log_every), bank_capacity=cap)
+    t0 = time.perf_counter()
+    trainer = DQNTrainer(cfg, device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    print(f"  trainer init (the host fill) {init_s:.2f} s")
+    bank = trainer.bank
+    check(bank.family_counts == {"carve": 768, "forward": 256},
+          f"default bank families {bank.family_counts}")
+    rng = random.Random(cfg.seed)
+    carves = [CarvingGenerator(2, 20, rng=rng).generate() for _ in range(768)]
+    cols_h, pieces_h = pack_host_rows(carves, 21)
+    check(torch.equal(bank.cols[:768].cpu(), cols_h)
+          and torch.equal(bank.pieces[:768].cpu(), pieces_h),
+          "the bank's 768 carve rows read back equal to the host carver's")
+    swaps = []
+    swap = bank._swap_rows
+
+    def timed_swap(fresh, family):
+        t = time.perf_counter()
+        swap(fresh, family)
+        swaps.append((time.perf_counter() - t, len(fresh), family, t - t0))
+
+    bank._swap_rows = timed_swap
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = trainer.train(log_fn=lambda m: print("  " + m), refresh_bank=True)["history"]
+    wall = time.perf_counter() - t0
+    launches = _build.LAUNCHES["actor"]
+    phases = chunks * log_every // K
+    check(launches == phases, f"actor kernel launched {launches}x = {phases} phases")
+    writes = bank.refresh_writes
+    first = swaps[0][3] if swaps else float("nan")
+    check(writes > 0 and writes == sum(s[1] for s in swaps),
+          f"the refresh wrote {writes} rows in {len(swaps)} swaps, the first "
+          f"{first:.2f} s into the {wall:.2f} s run")
+    check(all(r["bank_families"]["forward"] <= cap // 4 for r in hist)
+          and bank.family_counts["forward"] <= cap // 4,
+          f"forward share at or below the cap of {cap // 4} rows: "
+          f"{[r['bank_families']['forward'] for r in hist]}")
+    check(not bank._pool.slots and not multiprocessing.active_children(),
+          "no producer process left alive")
+    cols, pieces = bank.rows
+    check(int(pieces.min()) >= 0 and int(pieces.max()) <= 6
+          and int((cols >> 20).abs().sum()) == 0, "bank rows stay well formed")
+    check(all(np.isfinite(r["loss"]) for r in hist), "loss finite")
+    swap_s = sum(s[0] for s in swaps)
+    on = hist[-1]
+    off = trainer.train(total_steps=2 * log_every, log_fn=lambda m: print("  " + m))[
+        "history"][-1]
+    print(f"  {writes / (wall - first):.1f} refresh rows/s from the first write "
+          f"on ({len(swaps)} swaps, {swap_s:.3f} s in "
+          f"_swap_rows); last chunk {on['steps_per_s']:.4e} env-steps/s with the "
+          f"refresh, {off['steps_per_s']:.4e} without; learner share "
+          f"{on['learner_share']:.3f} / {off['learner_share']:.3f}")
+    ckpt = ROOT / "build" / "chip_smoke_default_ckpt"
+    trainer.save_checkpoint(str(ckpt))
+    return {"launches": launches, "init_fill_s": init_s, "refresh_writes": writes,
+            "refresh_rows_per_s": writes / (wall - first), "train_wall_s": wall,
+            "first_write_s": first,
+            "swaps": len(swaps), "swap_s": swap_s,
+            "env_steps_per_s_refresh": on["steps_per_s"],
+            "env_steps_per_s_no_refresh": off["steps_per_s"],
+            "learner_share_refresh": on["learner_share"],
+            "learner_share_no_refresh": off["learner_share"], "ckpt": str(ckpt)}
+
+
+def phase_array_engine() -> dict:
+    """The readable array engine on the card against the bitboard step on
+    the card (and the array engine on the CPU), word for word."""
+    n, L, M = 4096, 2, 20
+    print(f"array engine vs bitboard on the card: N={n}, L={L}/M={M}, garbage actions")
+    rng = np.random.default_rng(5)
+    boards = adversarial_boards(rng, n)
+    pieces = rng.integers(0, 7, (n, M + 1))
+    st_a = array_engine.make_state_batch(torch.as_tensor(boards, device=DEV),
+                                         torch.as_tensor(pieces, device=DEV), L, M)
+    st_c = array_engine.make_state_batch(torch.as_tensor(boards),
+                                         torch.as_tensor(pieces), L, M)
+    st_b = bb.make_state_batch(torch.as_tensor(boards, device=DEV),
+                               torch.as_tensor(pieces, device=DEV), L, M)
+    lines = 0
+    for k in range(M + 4):
+        rot = rng.integers(-3, 1000, n)
+        loc = rng.integers(-6, 16, n)
+        args = [torch.as_tensor(a, device=DEV) for a in (rot, loc)]
+        ra, rb = array_engine.step(st_a, *args), bb.step(st_b, *args)
+        rc = array_engine.step(st_c, torch.as_tensor(rot), torch.as_tensor(loc))
+        if not (states_equal(bb.from_env_state(ra.state), rb.state)
+                and torch.equal(array_engine.observe(st_a), bb.observe(st_b))
+                and all(torch.equal(x.cpu(), y) for x, y in zip(ra.state, rc.state))):
+            check(False, f"step {k}: array engine equals the bitboard and the CPU")
+        lines += int(ra.lines_delta.sum())
+        st_a, st_b, st_c = ra.state, rb.state, rc.state
+    check(lines > 0, f"{M + 4} steps word for word (card array = card bitboard = "
+          f"CPU array; {lines} lines cleared)")
+    return {"steps": M + 4, "envs": n}
+
+
+def phase_curriculum() -> dict:
+    """The curriculum trainer at full width (no kernel of its own: the JAX
+    curriculum runs the XLA step too)."""
+    levels = [(1, 10), (2, 15), (3, 20)]
+    chunks, chunk = 3, 100
+    print("curriculum trainer: levels 1:10,2:15,3:20, 1024 envs, bank 1024 per "
+          f"level, replay 131072, batch 128, {chunks} chunks of {chunk} steps")
+    cfg = TrainConfig(env=EnvConfig(L=1, M=10), dqn=DQNConfig(batch_size=128),
+                      num_envs=1024, bank_capacity=1024, replay_capacity=131072,
+                      warmup_steps=1000, seed=0)
+    sync()
+    t0 = time.perf_counter()
+    tr = CurriculumTrainer(levels, cfg=cfg, seed=0, device=DEV)
+    sync()
+    bank_s = time.perf_counter() - t0
+    bank = tr.bank
+    bank_cpu = cur_lib.CurriculumBank(*(x.cpu() for x in bank))
+    rng = np.random.default_rng(2)
+    level = torch.as_tensor(rng.integers(0, 3, 1024))
+    idx = torch.as_tensor(rng.integers(0, 1024, 1024))
+    st = cur_lib.make_states(bank, level.to(DEV), idx.to(DEV))
+    st_c = cur_lib.make_states(bank_cpu, level, idx)
+    dones = 0
+    for k in range(24):
+        rot, loc, ridx = (torch.as_tensor(rng.integers(0, hi, 1024)) for hi in (4, 10, 1024))
+        st, res = cur_lib.step_autoreset_curriculum(
+            st, rot.to(DEV), loc.to(DEV), bank, level.to(DEV), ridx.to(DEV))
+        st_c, _ = cur_lib.step_autoreset_curriculum(st_c, rot, loc, bank_cpu, level, ridx)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(st, st_c)):
+            check(False, f"step {k}: card and CPU step_autoreset_curriculum agree")
+        dones += int(res.done.sum())
+    check(dones > 1024, f"24 steps word for word, card against CPU ({dones} resets)")
+    hist = tr.train(total_steps=chunks * chunk, chunk=chunk,
+                    log_fn=lambda m: print("  " + m))
+    check(all(np.isfinite(r["loss"]) for r in hist) and hist[-1]["loss"] > 0,
+          "loss finite, learning on")
+    check(sum(hist[-1]["level_distribution"]) == 1024, "every env has a level")
+    t0 = time.perf_counter()
+    ev = tr.evaluate_levels(episodes_per_level=256)
+    eval_s = time.perf_counter() - t0
+    check(all(r["win_rate"] + r["loss_rate"] == 1.0 for r in ev),
+          f"greedy evaluation per level ends every episode: "
+          f"{[round(r['win_rate'], 4) for r in ev]}")
+    last = hist[-1]
+    print(f"  bank {bank_s:.2f} s; last chunk {last['steps_per_s']:.4e} env-steps/s; "
+          f"evaluation {eval_s:.2f} s")
+    return {"bank_s": bank_s, "env_steps_per_s": last["steps_per_s"],
+            "train_win_rates": [r["win_rate_per_level"] for r in hist],
+            "level_distribution": last["level_distribution"],
+            "eval_win_rates": [r["win_rate"] for r in ev], "eval_s": eval_s}
+
+
+def run_cli(argv: list) -> dict:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {' '.join(argv)} exits 0")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def phase_cli(ckpt: str, rollout_rate: float) -> dict:
+    """``cli play`` and ``cli bench`` (counted: bench runs the rollout kernel)."""
+    print("cli play: recorded solution, and greedy on the card")
+    sol = run_cli(["play", "-L", "2", "-M", "20", "--seed", "3"])
+    check(sol["result"] == "win", f"play --policy solution: {sol}")
+    greedy = run_cli(["play", "-L", "2", "-M", "20", "--seed", "3", "--policy",
+                      "greedy", "--checkpoint", ckpt])
+    check(greedy["result"] in ("win", "loss") and 0 < greedy["moves_used"] <= 20,
+          f"play --policy greedy from the default-bank trainer: {greedy}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print("cli bench: N=8192, K=1024, host-filled bank 256, 5 repeats")
+    _build.reset_launch_counts()
+    res = run_cli(["bench"])
+    launches = _build.LAUNCHES["rollout"]
+    check(launches == 6, f"bench launched the rollout kernel {launches}x (1 + 5 repeats)")
+    check(sorted(res) == ["metric", "unit", "value", "vs_baseline"]
+          and res["metric"] == "env_steps_per_sec_per_chip",
+          f"bench prints bench.py's keys: {res}")
+    print(f"  bench {res['value']:.4e} env-steps/s ({res['vs_baseline']}x the "
+          f"reference's move()); phase 1's kernel time gives {rollout_rate:.4e}")
+    return {"bench": res, "bench_launches": launches, "play": [sol, greedy],
+            "bench_over_kernel_rate": res["value"] / rollout_rate}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -1019,6 +1269,11 @@ def main() -> int:
     flagship = phase_flagship_demo()
     adaptive = phase_adaptive_bf16()
     nstep = phase_nstep_per()
+    carves = phase_host_carves()
+    default = phase_default_bank_trainer()
+    array = phase_array_engine()
+    curriculum = phase_curriculum()
+    cli_res = phase_cli(default.pop("ckpt"), r_bench["env_steps_per_s"])
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1049,7 +1304,13 @@ def main() -> int:
                       "adaptive_bf16_trainer": adaptive,
                       "nstep_per_trainer": {k: v for k, v in nstep.items()
                                             if k != "launches"}}))
+    print(json.dumps({"host_carves": carves,
+                      "default_bank_trainer": {k: v for k, v in default.items()
+                                               if k != "launches"},
+                      "array_engine": array, "curriculum": curriculum,
+                      "cli": cli_res}))
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of
 ``tetris_piclim_tpu_torch`` and ``chip_smoke.py`` pulls in neither jax nor
 the JAX package, entry points default to the GPU (and raise without one),
-and ``chip_smoke.py`` fails, printing no result, without a card or without
-the rest of the repo."""
+the modules that spawned producer processes load (the refresh producers,
+the host generators, ``env_api``) pull in neither torch nor jax, and
+``chip_smoke.py`` fails, printing no result, without a card or without the
+rest of the repo."""
 
 import json
 import os
@@ -27,10 +29,12 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "tetris_piclim_tpu") or m.startswith(("jax.", "tetris_piclim_tpu.")))
 raised = []
 if not __import__("torch").cuda.is_available():
+    from tetris_piclim_tpu_torch.dqn.curriculum_train import CurriculumTrainer
     from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
     from tetris_piclim_tpu_torch.gen.bank import ConfigBank
     from tetris_piclim_tpu_torch.utils.config import TrainConfig
-    for call in (lambda: ConfigBank(2, 20, capacity=8), lambda: DQNTrainer(TrainConfig())):
+    for call in (lambda: ConfigBank(2, 20, capacity=8), lambda: DQNTrainer(TrainConfig()),
+                 lambda: CurriculumTrainer([(1, 8)])):
         try:
             call()
         except RuntimeError as e:
@@ -53,7 +57,24 @@ def test_port_imports_no_jax_and_defaults_to_cuda():
     assert len(res["modules"]) >= 15, res["modules"]
     assert res["bad"] == []
     if not torch.cuda.is_available():
-        assert res["raised"] == [True, True]
+        assert res["raised"] == [True, True, True]
+
+
+_PRODUCER_PROBE = r"""
+import json, sys
+from tetris_piclim_tpu_torch import env_api
+from tetris_piclim_tpu_torch.gen import _producers, carver, minimize, pipeline
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("torch", "jax", "tetris_piclim_tpu", "triton"))
+print(json.dumps(heavy))
+"""
+
+
+def test_producer_modules_load_no_torch():
+    out = subprocess.run([sys.executable, "-c", _PRODUCER_PROBE], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

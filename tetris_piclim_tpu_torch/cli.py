@@ -1,11 +1,19 @@
-"""Command-line interface of the PyTorch port: ``train`` and ``eval``.
+"""Command-line interface of the PyTorch port: ``train`` (the DQN loop),
+``curriculum`` (the curriculum trainer), ``eval`` (greedy win rate),
+``generate`` (winnable configurations, both families), ``play`` (one
+episode of the single-env API) and ``bench`` (env-step throughput).
 
 Usage: ``python -m tetris_piclim_tpu_torch <command> [flags]``. The flags
-are those of ``tetris_piclim_tpu.cli`` for the ported path, plus
-``--device {cuda,cpu}`` (default cuda; there is no silent CPU fallback).
-``train --smoke`` shrinks the sizes (task L=1/M=8, 64 envs, bank 64, replay
-8192, 400 steps, at most 64 demo rows into a 512-row demo buffer) and keeps
-every other flag.
+are those of ``tetris_piclim_tpu.cli``, plus ``--device {cuda,cpu}`` on the
+commands that run on a device (default cuda; there is no silent CPU
+fallback). ``train --smoke`` shrinks the sizes (task L=1/M=8, 64 envs, bank
+64, replay 8192, 400 steps, at most 64 demo rows into a 512-row demo
+buffer) and keeps every other flag. ``train --config FILE`` reads a
+``TrainConfig`` JSON, and every flag the user set to other than its default
+overrides the file, as in the JAX CLI; here that covers every flag that maps
+to a config field (the JAX CLI's list leaves out ``--lr``, ``--opt-bf16``,
+``--actor-fusion`` and the demo flags). Without ``--device-bank`` the bank
+is the trainer's default host fill, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +22,45 @@ import argparse
 import dataclasses
 import json
 import sys
+
+
+# (flag, TrainConfig field) pairs that ``--config`` lets a changed flag
+# override, per config section
+_OVERRIDES = {
+    "env": [("lines", "L"), ("moves", "M")],
+    "dqn": [("n_step", "n_step"), ("per", "prioritized"),
+            ("eps_decay", "eps_decay"), ("double", "double_dqn"),
+            ("batch", "batch_size"), ("lr", "lr"), ("opt_bf16", "opt_state_bf16")],
+    "top": [("num_envs", "num_envs"), ("bank", "bank_capacity"),
+            ("replay", "replay_capacity"), ("warmup", "warmup_steps"),
+            ("steps", "total_steps"), ("log_every", "log_every"),
+            ("updates", "updates_per_step"), ("actor_fusion", "actor_fusion"),
+            ("seed", "seed"), ("checkpoint", "checkpoint_dir"),
+            ("checkpoint_every", "checkpoint_every"),
+            ("demo_every", "demo_every"), ("demo_ratio", "demo_ratio"),
+            ("demo_rows", "demo_rows"), ("demo_margin", "demo_margin"),
+            ("demo_margin_weight", "demo_margin_weight")],
+}
+
+
+def _merge_config(args, path: str):
+    """The JSON config at ``path`` with every flag the user changed from its
+    argparse default laid over it (JAX ``cli.py:100-135``)."""
+    from .utils.config import TrainConfig
+
+    with open(path) as fh:
+        cfg = TrainConfig.from_json(fh.read())
+    default = args._parser.get_default
+    kw = {sec: {field: getattr(args, flag) for flag, field in pairs
+                if getattr(args, flag) != default(flag)}
+          for sec, pairs in _OVERRIDES.items()}
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env, **kw["env"]),
+                              dqn=dataclasses.replace(cfg.dqn, **kw["dqn"]),
+                              **kw["top"])
+    changed = {**kw["env"], **kw["dqn"], **kw["top"]}
+    if changed:
+        print(f"--config merged with CLI overrides: {changed}", file=sys.stderr)
+    return cfg
 
 
 def _config(args):
@@ -42,6 +89,8 @@ def _config(args):
         demo_margin=args.demo_margin,
         demo_margin_weight=args.demo_margin_weight,
     )
+    if args.config:
+        cfg = _merge_config(args, args.config)
     if args.smoke:
         cfg = dataclasses.replace(
             cfg, env=EnvConfig(L=1, M=8), num_envs=64, bank_capacity=64,
@@ -126,7 +175,7 @@ def cmd_train(args) -> int:
         bank = _device_bank(args, cfg.env.L, cfg.env.M, cfg.bank_capacity,
                             cfg.seed)
     trainer = DQNTrainer(cfg, bank=bank, net=_net(args, cfg.seed),
-                         device=args.device)
+                         device=args.device, backend=args.backend)
     if args.warm_start:
         trainer.warm_start(args.warm_start)
         print(f"warm-started weights from {args.warm_start}", file=sys.stderr)
@@ -136,6 +185,7 @@ def cmd_train(args) -> int:
               f"{trainer.state.global_step}", file=sys.stderr)
     logger = MetricsLogger(path=args.log_file)
     trainer.train(log_fn=lambda msg: print(msg, file=sys.stderr),
+                  refresh_bank=args.refresh_bank,
                   device_refresh_every=args.device_refresh,
                   device_forward_fraction=args.device_forward,
                   device_beam_width=args.device_beam,
@@ -180,6 +230,8 @@ def cmd_eval(args) -> int:
         # the training run's INITIAL fill (same seed, capacity, forward
         # share, beam and height)
         bank = _device_bank(args, args.lines, args.moves, args.bank, args.seed)
+    # no bank: the trainer's default host fill, the bank of a default-flag
+    # training run of the same seed and capacity
     trainer = DQNTrainer(cfg, bank=bank, net=_net(args, args.seed),
                          device=args.device)
     if args.checkpoint:
@@ -191,15 +243,124 @@ def cmd_eval(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def cmd_curriculum(args) -> int:
+    from .dqn.curriculum_train import CurriculumTrainer
+    from .utils.config import EnvConfig, TrainConfig
+
+    levels = [tuple(int(x) for x in pair.split(":"))
+              for pair in args.levels.split(",")]
+    cfg = TrainConfig(env=EnvConfig(L=levels[0][0], M=levels[0][1]),
+                      num_envs=args.num_envs, bank_capacity=args.bank,
+                      replay_capacity=args.replay, warmup_steps=args.warmup,
+                      updates_per_step=args.updates, seed=args.seed)
+    tr = CurriculumTrainer(levels, cfg=cfg, seed=args.seed,
+                           net=_net(args, args.seed), device=args.device)
+    hist = tr.train(total_steps=args.steps, chunk=args.chunk,
+                    threshold=args.threshold,
+                    log_fn=lambda m: print(m, file=sys.stderr))
+    eval_rows = tr.evaluate_levels(episodes_per_level=args.eval_episodes)
+    for row in eval_rows:
+        print(f"eval level {row['level']} (L={row['L']}, M={row['M']}): "
+              f"win_rate={row['win_rate']:.3f}", file=sys.stderr)
+    print(json.dumps({"train": hist[-1], "eval_per_level": eval_rows}))
+    return 0
+
+
+def cmd_generate(args) -> int:
+    import numpy as np
+
+    if args.family == "forward":
+        from .gen.pipeline import generate_batch
+
+        games = generate_batch(args.lines, args.moves, seed_start=args.seed_start,
+                               seed_end=args.seed_end,
+                               initial_height_max=args.height_max,
+                               max_attempts=args.max_attempts)
+        print(json.dumps({"family": "forward", "winnable": len(games),
+                          "attempted": args.seed_end - args.seed_start,
+                          "seeds": [g.seed for g in games]}))
+    else:
+        import random
+
+        from .gen.carver import CarvingGenerator
+
+        rng = random.Random(args.seed_start)
+        boards = [CarvingGenerator(args.lines, args.moves, rng=rng).generate()[0]
+                  for _ in range(args.count)]
+        print(json.dumps({"family": "carve", "generated": len(boards),
+                          "mean_filled_cells": float(np.mean([b.sum() for b in boards]))}))
+    return 0
+
+
+def cmd_play(args) -> int:
+    import random
+
+    from .env_api import Tetris
+
+    t = Tetris(args.lines, args.moves, warm_reset=False, render=args.render,
+               debug=True, seed=args.seed)
+    if args.policy == "solution":
+        for rot, loc in t.solution:
+            t.move(rot, loc)
+    elif args.policy == "greedy":
+        import numpy as np
+        import torch
+
+        from .models.qnet import q_ops
+        from .utils.checkpoint import restore_params
+        from .utils.device import resolve_device
+
+        if not args.checkpoint:
+            print("--policy greedy requires --checkpoint", file=sys.stderr)
+            return 2
+        dev = resolve_device(args.device)
+        net = _net(args, args.seed).to(dev)
+        net.load_state_dict(restore_params(args.checkpoint, dev)[0])
+
+        def host_obs():
+            board, cur, nxt, lines_left, moves_left, _ = t.get_state()
+            oh = np.zeros(14, np.float32)
+            oh[cur] = 1.0
+            oh[7 + nxt] = 1.0
+            return np.concatenate([board.astype(np.float32).reshape(-1), oh,
+                                   np.array([lines_left, moves_left, 0.0], np.float32)])
+
+        with torch.no_grad():
+            while t.state is None:
+                q = net(torch.as_tensor(host_obs(), device=dev)[None])
+                rot, col = q_ops(q.shape[-1]).greedy(q)
+                t.move(int(rot[0]), int(col[0]))
+    else:
+        rng = random.Random(args.seed)
+        while t.state is None:
+            t.move(rng.randint(0, 3), rng.randint(0, 9))
+    print(json.dumps({"result": {True: "win", False: "loss"}[t.state],
+                      "lines_cleared": t.lines_cleared,
+                      "moves_used": t.moves_used}))
+    t.terminate()
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from .bench import run
+
+    res = run(device=args.device)
+    keys = ("metric", "value", "unit", "vs_baseline")
+    print(json.dumps({k: res[k] for k in keys}))
+    print("# " + " ".join(f"{k}={v}" for k, v in res.items() if k not in keys),
+          file=sys.stderr)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tetris_piclim_tpu_torch")
     sub = ap.add_subparsers(dest="command", required=True)
 
-    def common(p, bank_default: int) -> None:
+    def env_flags(p) -> None:
         p.add_argument("-L", "--lines", type=int, default=2, help="lines to clear")
         p.add_argument("-M", "--moves", type=int, default=20, help="move budget")
-        p.add_argument("--bank", type=int, default=bank_default)
-        p.add_argument("--seed", type=int, default=0)
+
+    def model_flags(p) -> None:
         p.add_argument("--joint", action="store_true",
                        help="40-way joint (rotation, column) head")
         p.add_argument("--model", choices=["mlp", "conv"], default="mlp",
@@ -221,6 +382,15 @@ def main(argv=None) -> int:
                        help="conv model: PxP max-pool before the flatten")
         p.add_argument("--channels", default="32,64", metavar="C1,C2",
                        help="conv torso channel widths")
+
+    def device_flag(p) -> None:
+        p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+
+    def common(p, bank_default: int) -> None:
+        env_flags(p)
+        p.add_argument("--bank", type=int, default=bank_default)
+        p.add_argument("--seed", type=int, default=0)
+        model_flags(p)
         p.add_argument("--device-bank", action="store_true",
                        help="fill the config bank on the device (carver, "
                             "plus --device-forward proven forward rows)")
@@ -240,7 +410,7 @@ def main(argv=None) -> int:
         p.add_argument("--holdout-bank", type=int, default=1024,
                        help="held-out bank capacity for --eval-holdout")
         p.add_argument("--checkpoint")
-        p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+        device_flag(p)
 
     p = sub.add_parser("train", help="run the DQN actor-learner")
     common(p, 1024)
@@ -303,7 +473,36 @@ def main(argv=None) -> int:
     p.add_argument("--log-file", help="JSONL metrics path")
     p.add_argument("--smoke", action="store_true",
                    help="tiny sizes (see the module docstring)")
-    p.set_defaults(fn=cmd_train)
+    p.add_argument("--config", help="TrainConfig JSON file; flags set to "
+                                    "other than their defaults override it")
+    p.add_argument("--refresh-bank", action="store_true",
+                   help="run the bank's producer processes (host carves and "
+                        "DFS-proven forward games) during training, swapping "
+                        "fresh rows into the live bank")
+    p.add_argument("--backend", choices=["bitboard", "array"], default="bitboard",
+                   help="bitboard = the packed production step; array = the "
+                        "readable engine (engine.py)")
+    p.set_defaults(fn=cmd_train, _parser=p)
+
+    p = sub.add_parser("curriculum",
+                       help="curriculum DQN over (L, M) levels with promotion")
+    p.add_argument("--levels", default="1:10,2:15,3:20",
+                   help="comma-separated L:M pairs, easiest first")
+    p.add_argument("--num-envs", type=int, default=1024)
+    p.add_argument("--bank", type=int, default=1024, help="rows per level")
+    p.add_argument("--replay", type=int, default=131072)
+    p.add_argument("--warmup", type=int, default=1000)
+    p.add_argument("--steps", type=int, default=20000)
+    p.add_argument("--chunk", type=int, default=1000)
+    p.add_argument("--threshold", type=float, default=0.7)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval-episodes", type=int, default=256,
+                   help="final greedy evaluation episodes per level")
+    p.add_argument("--updates", type=int, default=1,
+                   help="learner updates per env step")
+    model_flags(p)
+    device_flag(p)
+    p.set_defaults(fn=cmd_curriculum)
 
     p = sub.add_parser("eval", help="greedy-policy win rate")
     common(p, 256)
@@ -313,7 +512,36 @@ def main(argv=None) -> int:
                         "with its checkpoint instead of rebuilding the bank")
     p.set_defaults(fn=cmd_eval)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser("generate", help="winnable-config generation")
+    env_flags(p)
+    p.add_argument("--family", choices=["forward", "carve"], default="forward")
+    p.add_argument("--seed-start", type=int, default=0)
+    p.add_argument("--seed-end", type=int, default=100)
+    p.add_argument("--height-max", type=int, default=4)
+    p.add_argument("--max-attempts", type=int, default=1000)
+    p.add_argument("--count", type=int, default=100, help="carve family only")
+    p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser("play", help="play one episode")
+    env_flags(p)
+    p.add_argument("--policy", choices=["random", "solution", "greedy"],
+                   default="solution")
+    p.add_argument("--render", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint", help="training checkpoint for --policy greedy")
+    model_flags(p)
+    device_flag(p)
+    p.set_defaults(fn=cmd_play)
+
+    p = sub.add_parser("bench", help="env-step throughput benchmark")
+    device_flag(p)
+    p.set_defaults(fn=cmd_bench)
+
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -22,10 +22,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..engine import RUNNING
 from ..models.qnet import NUM_COL, NUM_ROT, q_ops
 from ..ops.actor import epsilon
-from ..utils.config import DQNConfig
+from ..utils.config import DQNConfig, EnvConfig
 from .replay import Batch, ReplayBuffer, cat_batches
+
+
+def env_reward(env: EnvConfig, lines_delta: torch.Tensor, done: torch.Tensor,
+               won: torch.Tensor) -> torch.Tensor:
+    """float32[N] reward of a step: ``reward_per_line`` per line cleared,
+    plus ``win_reward`` on a win or ``loss_reward`` on a loss (the
+    reference defines no reward; the JAX trainers' shaping)."""
+    lost = done & ~won
+    return (lines_delta.float() * env.reward_per_line
+            + won.float() * env.win_reward + lost.float() * env.loss_reward)
 
 
 def eps_schedule(step: int, cfg: DQNConfig) -> float:
@@ -54,6 +65,19 @@ def select_actions(net: nn.Module, obs: torch.Tensor, eps: float, *,
     rot = torch.where(explore, r_rot.long(), g_rot).to(torch.int32)
     col = torch.where(explore, r_col.long(), g_col).to(torch.int32)
     return rot, col
+
+
+@torch.no_grad()
+def greedy_rollout(net: nn.Module, env, n_steps: int, backend):
+    """The greedy policy for ``n_steps`` steps on ``backend``
+    (``ops.bitboard`` or ``engine``), finished envs frozen: the evaluation
+    rollout of both trainers. Returns the final state."""
+    for _ in range(n_steps):
+        q = net(backend.observe(env))
+        rot, col = q_ops(q.shape[-1]).greedy(q)
+        res = backend.step(env, rot, col)
+        env = backend.state_where(env.status != RUNNING, env, res.state)
+    return env
 
 
 def td_loss(net: nn.Module, target_net: nn.Module, batch: Batch,

@@ -1,12 +1,17 @@
 """DQN trainer: the on-device actor-learner loop.
 
-Counterpart of ``tetris_piclim_tpu/dqn/train.py``. A chunk of ``n`` env
+Counterpart of ``tetris_piclim_tpu/dqn/train.py``. Without a bank given,
+the trainer fills its own on the host, as the JAX trainer does:
+``ConfigBank.fill(carve_fraction=cfg.bank_carve_fraction)``, 75% carves and
+25% forward games proven by the DFS solver by default. A chunk of ``n`` env
 steps runs one of two paths:
 
 * the per-step path (``actor_fusion=0``): observe -> epsilon-greedy on the
   Q-network (any net: the MLP, dueling or not, or ``models/convnet.py``)
-  -> ``bitboard.step_autoreset_batch`` -> packed replay write ->
-  ``updates_per_step`` learner updates once the replay holds the warmup;
+  -> ``step_autoreset_batch`` of the backend (``"bitboard"``, the packed
+  step, or ``"array"``, the readable engine of ``engine.py``) -> packed
+  replay write -> ``updates_per_step`` learner updates once the replay
+  holds the warmup;
 * the fused path (``actor_fusion=K``, the plain MLP only): per phase, the
   fused actor (``ops/actor.py``, the CUDA kernel on the GPU) runs K env
   steps with the policy frozen, resetting from a random KB-row window of
@@ -17,8 +22,12 @@ The learner samples 1-step or n-step returns, uniformly or by priority
 (``dqn/replay.py``). With ``demo_every > 0`` a demonstration buffer, rebuilt
 every ``demo_every`` chunks from the beam prover's recorded solutions
 (:meth:`DQNTrainer._refresh_demo`), supplies ``demo_ratio`` of every batch
-(per-step path only, not with PER, as in JAX). ``train(adaptive_share=True)``
-steers the bank's forward share from two probe banks.
+(per-step path on the bitboard backend only, not with PER, as in JAX).
+``train(adaptive_share=True)`` steers the bank's forward share from two
+probe banks; ``train(refresh_bank=True)`` runs the bank's producer
+processes, which swap fresh host rows into the live bank meanwhile. A chunk
+reads the bank's (boards, pieces) pair once, so every step of it sees one
+generation of rows, as the JAX chunk gets the pair once as arguments.
 
 PyTorch runs eagerly, so the chunk is a Python loop; every metric stays a
 device tensor until the chunk ends, and the replay ring's position is a host
@@ -27,9 +36,7 @@ bank refresh and once per demo refresh. Random draws come from a generator
 on the device; scalar draws the host needs (window offsets, kernel seeds)
 from a CPU generator, so they cost no device sync.
 
-Not ported yet (see ROADMAP.md): the curriculum trainer, the host
-generators' refresh (``refresh_bank``), the array backend and multi-device
-meshes.
+Not ported yet (see ROADMAP.md): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -43,10 +50,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import engine
 from ..engine import RUNNING
 from ..gen import device_forward
 from ..gen.bank import ConfigBank
-from ..models.qnet import QNetwork, q_ops
+from ..models.qnet import QNetwork
 from ..ops import bitboard
 from ..ops.actor import actor_rollout_fused
 from ..utils.checkpoint import restore_params, restore_train_state, save_train_state
@@ -62,7 +70,7 @@ class TrainState:
     target_net: nn.Module
     opt: agent_lib.AmsgradW
     replay: ReplayBuffer
-    env: bitboard.PackedState
+    env: tuple                  # PackedState, or engine.EnvState (array)
     gen: torch.Generator        # device draws (actions, resets, samples)
     host_gen: torch.Generator   # CPU draws the host needs as ints
     global_step: int = 0        # env steps taken (per-env lockstep)
@@ -144,18 +152,27 @@ def height_at(device_height, done_steps: int, total_steps: int) -> int:
     return int(round(h0 + (h1 - h0) * frac))
 
 
+_BACKENDS = {"bitboard": bitboard, "array": engine}
+
+
 class DQNTrainer:
     def __init__(self, cfg: TrainConfig, bank: Optional[ConfigBank] = None,
-                 net: Optional[nn.Module] = None, device="cuda"):
+                 net: Optional[nn.Module] = None, device="cuda",
+                 backend: str = "bitboard"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend {backend!r}: want one of {list(_BACKENDS)}")
+        self.backend = _BACKENDS[backend]
         if net is None:
             net = QNetwork(generator=torch.Generator().manual_seed(cfg.seed))
         if cfg.actor_fusion > 0 and not (isinstance(net, QNetwork)
-                                         and not net.dueling):
+                                         and not net.dueling
+                                         and self.backend is bitboard):
             raise ValueError(
-                "actor_fusion requires the plain (non-dueling) MLP QNetwork: "
-                "the fused actor kernel runs that exact forward")
+                "actor_fusion requires the plain (non-dueling) MLP QNetwork "
+                "on the bitboard backend: the fused actor kernel runs that "
+                "exact forward and step")
         if cfg.demo_every > 0:
             if cfg.dqn.prioritized:
                 raise ValueError(
@@ -165,17 +182,22 @@ class DQNTrainer:
                 raise ValueError(
                     "demo-augmented training requires the per-step chunk "
                     "(actor_fusion=0)")
+            if self.backend is not bitboard:
+                raise ValueError(
+                    "demo-augmented training requires the bitboard backend")
         if bank is None:
             bank = ConfigBank(cfg.env.L, cfg.env.M, capacity=cfg.bank_capacity,
-                              seed=cfg.seed, device=self.device).fill_device()
+                              seed=cfg.seed, device=self.device).fill(
+                carve_fraction=cfg.bank_carve_fraction)
         self.bank = bank
         net = net.to(self.device)
         target = copy.deepcopy(net)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         idx = torch.randint(0, bank.capacity, (cfg.num_envs,), generator=gen,
                             device=self.device)
-        env = bitboard.make_state_batch(
-            bank.cols[idx], bank.pieces[idx], cfg.env.L, cfg.env.M)
+        boards, pieces = self._bank_rows(bank)
+        env = self.backend.make_state_batch(
+            boards[idx], pieces[idx], cfg.env.L, cfg.env.M)
         self.state = TrainState(
             net=net, target_net=target,
             opt=agent_lib.make_optimizer(net, cfg.dqn),
@@ -194,11 +216,14 @@ class DQNTrainer:
 
     # -- chunks -----------------------------------------------------------------
 
-    def _reward(self, lines_delta, done, won) -> torch.Tensor:
-        e = self.cfg.env
-        lost = done & ~won
-        return (lines_delta.float() * e.reward_per_line
-                + won.float() * e.win_reward + lost.float() * e.loss_reward)
+    def _bank_rows(self, bank: ConfigBank):
+        """The bank's (boards, pieces) pair, taken once, with the boards in
+        the backend's layout (packed for bitboard, bool[B, 20, 10] for the
+        array engine)."""
+        cols, pieces = bank.rows
+        if self.backend is bitboard:
+            return cols, pieces
+        return bitboard.unpack_board(cols), pieces
 
     def _learn(self, n_upd: int, m: dict) -> None:
         """``n_upd`` learner updates once the replay holds the warmup and
@@ -232,19 +257,23 @@ class DQNTrainer:
                 "q_mean_sum": z(torch.float32)}
 
     def _chunk_plain(self, n_steps: int) -> ChunkMetrics:
-        ts, bank, dqn = self.state, self.bank, self.cfg.dqn
+        ts, dqn, be = self.state, self.cfg.dqn, self.backend
+        boards, pieces = self._bank_rows(self.bank)
         m = self._new_metrics()
         n_upd = max(1, self.cfg.updates_per_step)
         for _ in range(n_steps):
-            obs = bitboard.observe(ts.env)
+            obs = be.observe(ts.env)
             eps = agent_lib.eps_schedule(ts.global_step, dqn)
             rot, col = agent_lib.select_actions(ts.net, obs, eps, generator=ts.gen)
-            idx = torch.randint(0, bank.capacity, (self.cfg.num_envs,),
+            idx = torch.randint(0, boards.shape[0], (self.cfg.num_envs,),
                                 generator=ts.gen, device=self.device)
-            nxt, res = bitboard.step_autoreset_batch(
-                ts.env, rot, col, bank.cols, bank.pieces, idx)
-            reward = self._reward(res.lines_delta, res.done, res.won)
-            ts.replay.add(ts.env, rot, col, reward, res.state, res.done)
+            nxt, res = be.step_autoreset_batch(ts.env, rot, col, boards, pieces, idx)
+            reward = agent_lib.env_reward(self.cfg.env, res.lines_delta, res.done, res.won)
+            if be is bitboard:
+                ts.replay.add(ts.env, rot, col, reward, res.state, res.done)
+            else:  # the replay stores packed states
+                ts.replay.add(bitboard.from_env_state(ts.env), rot, col, reward,
+                              bitboard.from_env_state(res.state), res.done)
             ts.env = nxt
             self._learn(n_upd, m)
             ts.global_step += 1
@@ -255,23 +284,24 @@ class DQNTrainer:
         return ChunkMetrics(**m)
 
     def _chunk_fused(self, n_steps: int) -> ChunkMetrics:
-        ts, bank, dqn = self.state, self.bank, self.cfg.dqn
+        ts, dqn = self.state, self.cfg.dqn
+        cols, pieces = self.bank.rows
         K = self.cfg.actor_fusion
         if n_steps % K:
             raise ValueError(f"chunk of {n_steps} steps is not whole K={K} phases")
         m = self._new_metrics()
         n_upd = max(1, self.cfg.updates_per_step) * K
-        kb = min(256, bank.capacity)
+        B = cols.shape[0]
+        kb = min(256, B)
         for _ in range(n_steps // K):
-            off = int(torch.randint(0, bank.capacity - kb + 1, (),
-                                    generator=ts.host_gen))
+            off = int(torch.randint(0, B - kb + 1, (), generator=ts.host_gen))
             seed = int(torch.randint(0, 2**31 - 1, (), generator=ts.host_gen))
             ts.env, trans, episodes, wins = actor_rollout_fused(
-                ts.env, ts.net, bank.cols[off:off + kb],
-                bank.pieces[off:off + kb], ts.global_step, seed,
+                ts.env, ts.net, cols[off:off + kb],
+                pieces[off:off + kb], ts.global_step, seed,
                 eps_start=dqn.eps_start, eps_end=dqn.eps_end,
                 eps_decay=dqn.eps_decay, n_steps=K)
-            reward = self._reward(trans.lines_delta, trans.done, trans.won)
+            reward = agent_lib.env_reward(self.cfg.env, trans.lines_delta, trans.done, trans.won)
             for k in range(K):
                 ts.replay.add_fields(
                     trans.cols[k], trans.cur[k], trans.nxt[k],
@@ -321,7 +351,7 @@ class DQNTrainer:
             rot, col = sol_rot[:, t].long(), sol_loc[:, t].long()
             valid = (env.status == RUNNING) & (t < sol_len)
             res = bitboard.step(env, rot, col)
-            reward = self._reward(res.lines_delta, res.done, res.won)
+            reward = agent_lib.env_reward(self.cfg.env, res.lines_delta, res.done, res.won)
             steps.append((*bitboard.packed_fields(env)[:5], rot, col, reward,
                           *bitboard.packed_fields(res.state), valid))
             env = bitboard.state_where(env.status != RUNNING, env, res.state)
@@ -361,6 +391,7 @@ class DQNTrainer:
     # -- host loop ----------------------------------------------------------------
 
     def train(self, total_steps: Optional[int] = None, log_fn=print,
+              refresh_bank: bool = False,
               device_refresh_every: int = 0,
               device_forward_fraction: float = 0.0,
               device_beam_width: int = 8,
@@ -383,6 +414,12 @@ class DQNTrainer:
         (``adapt_rule="v2"``) or :func:`adapt_share` (``"v1"``) sets the
         forward share of the following refreshes.
 
+        ``refresh_bank=True`` starts the bank's producer processes
+        (``ConfigBank.start_refresh``: carves, and forward games proven by
+        the host DFS solver) before the first chunk and stops them when the
+        call ends, however it ends; each row then logs the rows they have
+        written and the bank's family counts.
+
         Seeds come from ``np.random.default_rng(cfg.seed + 0xBA4E)`` in the
         JAX trainer's order within a chunk: two for the probes, one for the
         bank refresh, one for the demo refresh."""
@@ -403,75 +440,86 @@ class DQNTrainer:
             probe_f = ConfigBank(L, M, capacity=512, seed=cfg.seed + 7002,
                                  device=dev).fill_device(
                 forward_fraction=1.0, beam_width=device_beam_width)
-        t0 = time.perf_counter()
-        while done_steps < total:
-            probe = None
-            if adaptive_share and chunk_i and chunk_i % adapt_every == 0:
-                seed_c, seed_f = draw(), draw()
-                wc = self.evaluate(adapt_episodes, seed=seed_c, bank=probe_c)["win_rate"]
-                wf = self.evaluate(adapt_episodes, seed=seed_f, bank=probe_f)["win_rate"]
-                rule = adapt_share_v2 if adapt_rule == "v2" else adapt_share
-                share = rule(share, wc, wf)
-                probe = {"probe_carve": wc, "probe_forward": wf}
-            if device_refresh_every and chunk_i and chunk_i % device_refresh_every == 0:
-                self.bank.refresh_device(
-                    seed=draw(), forward_fraction=share,
-                    beam_width=device_beam_width,
-                    initial_height_max=height_at(device_height, done_steps, total))
-            if self._demo is not None and chunk_i % cfg.demo_every == 0:
-                # runs at chunk 0 too, so the buffer is full when learning starts
-                self._refresh_demo(draw(), height_at(device_height, done_steps, total),
-                                   device_beam_width)
-            chunk_i += 1
-            n = min(chunk, total - done_steps)
-            if cfg.actor_fusion > 0:
-                K = cfg.actor_fusion
-                n = -(-n // K) * K  # kernel phases are K steps
-            m = self.run_chunk(n)
-            episodes = int(m.episodes)  # waits for the chunk
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            learner_ms = self._clock.total_ms()
+        if refresh_bank:
+            self.bank.start_refresh()
+        try:
             t0 = time.perf_counter()
-            done_steps += n
-            count = max(m.loss_count, 1)
-            row = {
-                "step": done_steps,
-                "env_steps": done_steps * cfg.num_envs,
-                "episodes": episodes,
-                "win_rate": int(m.wins) / max(episodes, 1),
-                "lines": int(m.lines),
-                "reward": float(m.reward),
-                "loss": float(m.loss_sum) / count,
-                "q_mean": float(m.q_mean_sum) / count,
-                "updates": m.loss_count,
-                "eps": agent_lib.eps_schedule(self.state.global_step, cfg.dqn),
-                "steps_per_s": n * cfg.num_envs / max(dt, 1e-9),
-                "learner_share": learner_ms / max(dt * 1e3, 1e-9),
-            }
-            if device_refresh_every and (adaptive_share or device_height is not None):
-                row["forward_share"] = round(share, 4)
-            if probe is not None:
-                row.update(probe)
-            history.append(row)
-            if log_fn is not None:
-                extra = ""
-                if "forward_share" in row:
-                    extra += f" share={row['forward_share']:.2f}"
+            while done_steps < total:
+                probe = None
+                if adaptive_share and chunk_i and chunk_i % adapt_every == 0:
+                    seed_c, seed_f = draw(), draw()
+                    wc = self.evaluate(adapt_episodes, seed=seed_c, bank=probe_c)["win_rate"]
+                    wf = self.evaluate(adapt_episodes, seed=seed_f, bank=probe_f)["win_rate"]
+                    rule = adapt_share_v2 if adapt_rule == "v2" else adapt_share
+                    share = rule(share, wc, wf)
+                    probe = {"probe_carve": wc, "probe_forward": wf}
+                if device_refresh_every and chunk_i and chunk_i % device_refresh_every == 0:
+                    self.bank.refresh_device(
+                        seed=draw(), forward_fraction=share,
+                        beam_width=device_beam_width,
+                        initial_height_max=height_at(device_height, done_steps, total))
+                if self._demo is not None and chunk_i % cfg.demo_every == 0:
+                    # runs at chunk 0 too, so the buffer is full when learning starts
+                    self._refresh_demo(draw(), height_at(device_height, done_steps, total),
+                                       device_beam_width)
+                chunk_i += 1
+                n = min(chunk, total - done_steps)
+                if cfg.actor_fusion > 0:
+                    K = cfg.actor_fusion
+                    n = -(-n // K) * K  # kernel phases are K steps
+                m = self.run_chunk(n)
+                episodes = int(m.episodes)  # waits for the chunk
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                learner_ms = self._clock.total_ms()
+                t0 = time.perf_counter()
+                done_steps += n
+                count = max(m.loss_count, 1)
+                row = {
+                    "step": done_steps,
+                    "env_steps": done_steps * cfg.num_envs,
+                    "episodes": episodes,
+                    "win_rate": int(m.wins) / max(episodes, 1),
+                    "lines": int(m.lines),
+                    "reward": float(m.reward),
+                    "loss": float(m.loss_sum) / count,
+                    "q_mean": float(m.q_mean_sum) / count,
+                    "updates": m.loss_count,
+                    "eps": agent_lib.eps_schedule(self.state.global_step, cfg.dqn),
+                    "steps_per_s": n * cfg.num_envs / max(dt, 1e-9),
+                    "learner_share": learner_ms / max(dt * 1e3, 1e-9),
+                }
+                if refresh_bank:
+                    row["bank_writes"] = self.bank.refresh_writes
+                    row["bank_families"] = self.bank.family_counts
+                if device_refresh_every and (adaptive_share or device_height is not None):
+                    row["forward_share"] = round(share, 4)
                 if probe is not None:
-                    extra += (f" probe_c={probe['probe_carve']:.3f}"
-                              f" probe_f={probe['probe_forward']:.3f}")
-                log_fn(
-                    f"[{row['step']:>7}] env_steps={row['env_steps']:.2e} "
-                    f"win_rate={row['win_rate']:.3f} loss={row['loss']:.4f} "
-                    f"eps={row['eps']:.3f} sps={row['steps_per_s']:.3e}{extra}"
-                )
-            since_ckpt += n
-            if cfg.checkpoint_dir and cfg.checkpoint_every > 0 \
-                    and since_ckpt >= cfg.checkpoint_every:
-                self.save_checkpoint()
-                since_ckpt = 0
+                    row.update(probe)
+                history.append(row)
+                if log_fn is not None:
+                    extra = (f" bank_writes={row['bank_writes']}"
+                             f" families={row['bank_families']}"
+                             if refresh_bank else "")
+                    if "forward_share" in row:
+                        extra += f" share={row['forward_share']:.2f}"
+                    if probe is not None:
+                        extra += (f" probe_c={probe['probe_carve']:.3f}"
+                                  f" probe_f={probe['probe_forward']:.3f}")
+                    log_fn(
+                        f"[{row['step']:>7}] env_steps={row['env_steps']:.2e} "
+                        f"win_rate={row['win_rate']:.3f} loss={row['loss']:.4f} "
+                        f"eps={row['eps']:.3f} sps={row['steps_per_s']:.3e}{extra}"
+                    )
+                since_ckpt += n
+                if cfg.checkpoint_dir and cfg.checkpoint_every > 0 \
+                        and since_ckpt >= cfg.checkpoint_every:
+                    self.save_checkpoint()
+                    since_ckpt = 0
+        finally:
+            if refresh_bank:
+                self.bank.stop_refresh()
         return {"history": history}
 
     # -- checkpoint / resume ---------------------------------------------------------
@@ -503,20 +551,14 @@ class DQNTrainer:
                  bank: Optional[ConfigBank] = None) -> dict:
         """Greedy win rate over ``n_episodes`` bank configs: each env plays
         one episode (no auto-reset) for M+1 steps, finished envs frozen."""
-        cfg = self.cfg
-        bank = bank if bank is not None else self.bank
+        cfg, be = self.cfg, self.backend
+        boards, pieces = self._bank_rows(bank if bank is not None else self.bank)
         gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1 if seed is None else seed)
-        idx = torch.randint(0, bank.capacity, (n_episodes,), generator=gen,
+        idx = torch.randint(0, boards.shape[0], (n_episodes,), generator=gen,
                             device=self.device)
-        env = bitboard.make_state_batch(
-            bank.cols[idx], bank.pieces[idx], cfg.env.L, cfg.env.M)
-        net = self.state.net
-        for _ in range(cfg.env.M + 1):
-            q = net(bitboard.observe(env))
-            rot, col = q_ops(q.shape[-1]).greedy(q)
-            res = bitboard.step(env, rot, col)
-            env = bitboard.state_where(env.status != RUNNING, env, res.state)
+        env = be.make_state_batch(boards[idx], pieces[idx], cfg.env.L, cfg.env.M)
+        env = agent_lib.greedy_rollout(self.state.net, env, cfg.env.M + 1, be)
         status = env.status.cpu().numpy()
         return {
             "episodes": n_episodes,

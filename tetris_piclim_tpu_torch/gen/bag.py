@@ -9,13 +9,15 @@ empty, and ``sequence(n)`` concatenates shuffled bags.
 uniform key per (sequence, bag, piece), argsorted within each bag, is a
 uniform permutation per bag. The JAX package permutes each bag under its own
 threefry key; the streams differ, the distribution is the same.
+
+The module imports torch only inside ``bag_sequences_device``: the host
+carver (:mod:`.carver`) uses ``SevenBag`` in the producer processes of
+``ConfigBank.start_refresh`` and ``env_api``, which load no torch.
 """
 
 from __future__ import annotations
 
 import random as _random_module
-
-import torch
 
 
 class SevenBag:
@@ -61,6 +63,10 @@ class SevenBag:
 def bag_sequences_device(n: int, length: int, *, generator: torch.Generator,
                          device) -> torch.Tensor:
     """int8[n, length]: N independent 7-bag sequences, on ``device``."""
+    # imported here: the host carver imports this module in producer
+    # processes, which stay free of torch
+    import torch
+
     n_bags = -(-length // 7)
     keys = torch.rand((n, n_bags, 7), generator=generator, device=device)
     bags = keys.argsort(dim=-1).to(torch.int8)

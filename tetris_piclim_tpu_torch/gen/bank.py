@@ -1,28 +1,35 @@
-"""Device-resident bank of winnable start configurations, and the held-out
-evaluation bank.
+"""Bank of winnable start configurations on the device, its refresh, and
+the held-out evaluation bank.
 
-Counterpart of the device half of ``tetris_piclim_tpu/gen/bank.py``: the
-bank keeps B winnable (board, piece-sequence) rows in device memory, and
-the env auto-reset draws rows from it with no host involvement. Rows come
-from two families: the lockstep carver (:mod:`.device_carver`) and, for a
-``forward_fraction`` share, forward-family games proven winnable by the beam
-prover (:mod:`.device_forward`). ``refresh_device`` regenerates rows between
-training chunks so the training distribution is effectively infinite.
+Counterpart of ``tetris_piclim_tpu/gen/bank.py``: the bank keeps B winnable
+(board, piece-sequence) rows in device memory, and the env auto-reset draws
+rows from it with no host involvement. Rows come from two families, carves
+and forward games proven winnable, and are made in one of two ways:
+
+* on the host (:meth:`ConfigBank.fill`, the trainer's default bank): the
+  seed-exact host carver (:mod:`.carver`) and the host forward pipeline
+  (:mod:`.pipeline`), row for row the JAX bank's at the same seed; and
+  background producer processes (:meth:`ConfigBank.start_refresh`) that
+  swap fresh host rows into the live bank while training runs;
+* on the device (:meth:`ConfigBank.fill_device` / ``refresh_device``): the
+  lockstep carver (:mod:`.device_carver`) and, for a ``forward_fraction``
+  share, forward games proven by the beam prover (:mod:`.device_forward`).
 
 :func:`make_holdout_bank` builds an evaluation bank that is checked to be
-disjoint from a training bank: host-proven forward games from seeds the
-training banks never use (:mod:`.pipeline`), topped up by the device beam
-prover, then device carves, each from a key of its own.
+disjoint from a training bank.
 
 Boards are kept packed (int32[B, 10] column words, the layout the step and
 the kernels read); the JAX bank keeps bool[B, 20, 10] and packs per chunk.
-The per-row ``family`` stays on the host. Not ported yet (ROADMAP.md): the
-host producer processes and their async refresh.
+The device rows are one pair, ``rows = (cols, pieces)``, rebound whole under
+the bank's lock, so a reader that takes the pair once never sees boards of
+one generation with pieces of another. The per-row ``family`` stays on the
+host.
 """
 
 from __future__ import annotations
 
 import random
+import threading
 import time
 from typing import Optional
 
@@ -32,10 +39,9 @@ import torch
 from ..ops.bitboard import pack_board, unpack_board
 from ..utils.device import resolve_device
 from . import device_carver, device_forward
+from ._producers import FAMILY_CARVE, FAMILY_FORWARD
+from .carver import CarvingGenerator
 from .pipeline import generate_batch, translate_batch
-
-FAMILY_CARVE = 0
-FAMILY_FORWARD = 1
 
 # Prove-chunk cap: the forward generator runs in chunks of at most this many
 # candidates, whatever the bank's size; small banks use the next power of two
@@ -58,28 +64,104 @@ def _row_key(board: np.ndarray, pieces: np.ndarray) -> bytes:
     return np.packbits(board).tobytes() + pieces.tobytes()
 
 
+def pack_host_rows(items: list, P: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host (board, pieces) rows as the bank stores them, on the CPU:
+    int32[n, 10] packed boards and int8[n, P] pieces, each piece list cut or
+    zero-padded to P."""
+    boards = torch.as_tensor(np.stack([np.asarray(b, dtype=bool) for b, _ in items]))
+    pieces = np.asarray([(list(p) + [0] * P)[:P] for _, p in items], dtype=np.int8)
+    return pack_board(boards), torch.as_tensor(pieces)
+
+
 class ConfigBank:
-    """Fixed-capacity bank: ``cols`` int32[B, 10] and ``pieces`` int8[B, M+1]
-    on ``device``, ``family`` int8[B] (FAMILY_CARVE / FAMILY_FORWARD) on the
-    host."""
+    """Fixed-capacity bank: ``rows = (cols, pieces)``, int32[B, 10] and
+    int8[B, M+1] on ``device``, and ``family`` int8[B] (FAMILY_CARVE /
+    FAMILY_FORWARD) on the host.
+
+    ``parity_translate`` makes the host forward rows keep the reference's
+    prepended random first piece (``translate_batch(parity=True)``);
+    ``forward_share_cap`` bounds the forward share that the asynchronous
+    refresh grows the bank to."""
 
     def __init__(self, L: int, M: int, capacity: int = 1024, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", parity_translate: bool = False,
+                 forward_share_cap: float = 0.25):
         self.L, self.M = L, M
         self.capacity = capacity
         self.P = M + 1
         self.device = resolve_device(device)
+        self.parity_translate = parity_translate
+        self.forward_share_cap = forward_share_cap
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # host draws (the extra piece of host forward rows), as the JAX bank
+        # host draws, as the JAX bank's: carves, forward pieces and producer
+        # seeds from _rng, refresh target rows from _np_rng
         self._rng = random.Random(seed)
-        self.cols: Optional[torch.Tensor] = None
-        self.pieces: Optional[torch.Tensor] = None
+        self._np_rng = np.random.default_rng(seed)
+        self._lock = threading.Lock()
+        self.rows: Optional[tuple[torch.Tensor, torch.Tensor]] = None
         self.family = np.zeros(capacity, dtype=np.int8)
+        self._refresh_writes = 0
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._pool = None  # the producers of start_refresh
+
+    @property
+    def cols(self) -> Optional[torch.Tensor]:
+        return None if self.rows is None else self.rows[0]
+
+    @property
+    def pieces(self) -> Optional[torch.Tensor]:
+        return None if self.rows is None else self.rows[1]
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         if seed is None:
             return self._gen
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    # -- host rows --------------------------------------------------------------
+
+    def _carve_one(self) -> tuple[np.ndarray, list[int]]:
+        return CarvingGenerator(self.L, self.M, rng=self._rng).generate()
+
+    def fill(self, carve_fraction: float = 1.0, seed_start: int = 0,
+             forward_seed_budget: int = 10_000) -> "ConfigBank":
+        """Fill every row on the host, as the JAX bank's ``fill``: the first
+        ``capacity * carve_fraction`` rows carved, the rest forward games
+        proven by the DFS solver from seed windows of 100 starting at
+        ``seed_start``; when ``forward_seed_budget`` seeds fall short (the
+        solver's yield collapses on hard tasks), carves fill the rest. The
+        rows are packed and uploaded to the bank's device."""
+        items, family = [], []
+        n_carve = int(self.capacity * carve_fraction)
+        for _ in range(n_carve):
+            items.append(self._carve_one())
+            family.append(FAMILY_CARVE)
+        seed = seed_start
+        while len(items) < self.capacity and seed < seed_start + forward_seed_budget:
+            games = generate_batch(self.L, self.M, seed_start=seed, seed_end=seed + 100)
+            seed += 100
+            # every game is translated (one draw each), as in JAX, before
+            # the rows past capacity are dropped
+            for row in translate_batch(games, self.M, rng=self._rng,
+                                       parity=self.parity_translate):
+                if len(items) < self.capacity:
+                    items.append(row)
+                    family.append(FAMILY_FORWARD)
+        while len(items) < self.capacity:  # forward shortfall -> carves
+            items.append(self._carve_one())
+            family.append(FAMILY_CARVE)
+        cols, pieces = pack_host_rows(items, self.P)
+        with self._lock:
+            self.rows = (cols.to(self.device), pieces.to(self.device))
+            self.family[:] = family
+        return self
+
+    @property
+    def refresh_writes(self) -> int:
+        """Rows written by the asynchronous refresh since the bank was made."""
+        return self._refresh_writes
+
+    # -- device rows ------------------------------------------------------------
 
     def _device_rows(self, gen: torch.Generator, forward_fraction: float,
                      initial_height_max: int, oversample: int,
@@ -123,11 +205,13 @@ class ConfigBank:
         """Fill every row on the device: carves, and a ``forward_fraction``
         share of proven forward-family rows (rows [0:n] of the bank).
         ``seed`` starts a fresh stream, None continues the bank's own."""
-        self.cols, self.pieces, n_got = self._device_rows(
+        cols, pieces, n_got = self._device_rows(
             self._generator(seed), forward_fraction, initial_height_max,
             oversample, beam_width)
-        self.family[:] = FAMILY_CARVE
-        self.family[:n_got] = FAMILY_FORWARD
+        with self._lock:
+            self.rows = (cols, pieces)
+            self.family[:] = FAMILY_CARVE
+            self.family[:n_got] = FAMILY_FORWARD
         return self
 
     def refresh_device(self, seed: Optional[int] = None,
@@ -137,20 +221,107 @@ class ConfigBank:
         """Regenerate rows on the device with fresh configurations.
 
         ``forward_fraction == 0``: the carve-family rows are regenerated and
-        the forward-family rows kept. ``forward_fraction > 0``: the whole
-        bank is regenerated as a carve + proven-forward mix, as by
-        :meth:`fill_device`."""
-        if forward_fraction > 0 or self.cols is None:
+        the forward-family rows (those of the host producers too) kept.
+        ``forward_fraction > 0``: the whole bank is regenerated as a carve +
+        proven-forward mix, as by :meth:`fill_device`."""
+        if forward_fraction > 0 or self.rows is None:
             return self.fill_device(seed, forward_fraction, initial_height_max,
                                     oversample, beam_width)
         batch = device_carver.generate_batch_device(
             self.capacity, self.L, self.M, generator=self._generator(seed),
             device=self.device)
-        carve = torch.as_tensor(self.family == FAMILY_CARVE,
-                                device=self.device)[:, None]
-        self.cols = torch.where(carve, batch.boards, self.cols)
-        self.pieces = torch.where(carve, batch.pieces, self.pieces)
+        with self._lock:
+            carve = torch.as_tensor(self.family == FAMILY_CARVE,
+                                    device=self.device)[:, None]
+            cols, pieces = self.rows
+            self.rows = (torch.where(carve, batch.boards, cols),
+                         torch.where(carve, batch.pieces, pieces))
         return self
+
+    # -- asynchronous refresh ---------------------------------------------------
+
+    def _swap_rows(self, fresh: list, family: int) -> None:
+        """Write fresh host rows of ``family`` into target rows drawn from
+        the bank's numpy generator, as the JAX bank's ``_swap_rows``: carve
+        rows replace carve rows only (the carver is orders of magnitude
+        faster than the prover and would wash the forward rows out); forward
+        rows replace carve rows until the forward share reaches
+        ``forward_share_cap``, then recycle forward rows. A row drawn twice
+        keeps its last write. The new pair is built from the old on the
+        device (the caller's thread, default stream, synchronous upload) and
+        rebound whole."""
+        with self._lock:
+            if family == FAMILY_FORWARD:
+                cap_rows = int(self.capacity * self.forward_share_cap)
+                n_fwd = int((self.family == FAMILY_FORWARD).sum())
+                pool_family = FAMILY_FORWARD if n_fwd >= cap_rows else FAMILY_CARVE
+            else:
+                pool_family = FAMILY_CARVE
+            pool = np.flatnonzero(self.family == pool_family)
+            if len(pool) == 0:
+                pool = np.arange(self.capacity)
+            targets = self._np_rng.choice(pool, size=len(fresh),
+                                          replace=len(pool) < len(fresh))
+            last = {int(row): k for k, row in enumerate(targets)}
+            cols_new, pieces_new = pack_host_rows([fresh[k] for k in last.values()],
+                                              self.P)
+            idx = torch.as_tensor(list(last), device=self.device)
+            cols, pieces = self.rows
+            self.rows = (cols.index_put((idx,), cols_new.to(self.device)),
+                         pieces.index_put((idx,), pieces_new.to(self.device)))
+            self.family[list(last)] = family
+            self._refresh_writes += len(fresh)
+
+    def _consume(self) -> None:
+        """Consumer thread: swap each batch a producer sends into the bank,
+        and restart a producer that died."""
+        while not self._stop.is_set():
+            for fam, items in self._pool.receive(0.2):
+                self._swap_rows(items, fam)
+            self._pool.restart_dead()
+
+    def start_refresh(self, n_threads: int = 1, batch_per_cycle: int = 32,
+                      forward: bool = True, forward_seed_start: int = 0,
+                      forward_window: int = 100) -> None:
+        """Start background producer processes that keep swapping fresh host
+        rows into the bank (the reference's two-producer design,
+        game/tetris.py:473-488): ``n_threads`` carving producers, each
+        sending batches of ``batch_per_cycle`` carves, and (``forward``) one
+        forward producer over rotating windows of ``forward_window`` seeds
+        from ``forward_seed_start``. Producer seeds come from the bank's
+        ``random.Random`` in the JAX bank's order.
+
+        Processes, not threads: the generators are GIL-bound Python, and
+        the training loop is host-launch bound. A consumer thread receives
+        the batches and calls :meth:`_swap_rows`. The children are spawned
+        and import only numpy-level code, never CUDA; a producer that dies
+        is restarted, at most 5 times in all (:class:`._producers.ProducerPool`)."""
+        from . import _producers
+
+        specs = [(_producers.carve_producer,
+                  (self.L, self.M, self._rng.randint(0, 2**31 - 1), batch_per_cycle))
+                 for _ in range(n_threads)]
+        if forward:
+            specs.append((_producers.forward_producer,
+                          (self.L, self.M, self.parity_translate, forward_seed_start,
+                           forward_window, self._rng.randint(0, 2**31 - 1))))
+        self._stop.clear()
+        self._pool = _producers.ProducerPool(specs)
+        th = threading.Thread(target=self._consume, daemon=True)
+        th.start()
+        self._threads.append(th)
+
+    def stop_refresh(self) -> None:
+        """Stop the consumer thread, then the producers (drain, join,
+        terminate what still runs); no process outlives this call."""
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=30)
+        self._threads.clear()
+        if self._pool is not None:
+            self._pool.close()
+
+    # -- views ------------------------------------------------------------------
 
     @property
     def family_counts(self) -> dict:
@@ -165,15 +336,16 @@ class ConfigBank:
         if len(idx) == 0:
             return None
         sel = torch.as_tensor(idx, device=self.device)
-        return ConfigBank.from_rows(self.L, self.M, self.cols[sel],
-                                    self.pieces[sel], self.family[idx])
+        cols, pieces = self.rows
+        return ConfigBank.from_rows(self.L, self.M, cols[sel], pieces[sel],
+                                    self.family[idx])
 
     def row_keys(self) -> set[bytes]:
         """One key per row, the (board, piece-sequence) identity; used to
         prove train/holdout disjointness."""
-        boards = unpack_board(self.cols).cpu().numpy()
-        pieces = self.pieces.cpu().numpy()
-        return {_row_key(b, p) for b, p in zip(boards, pieces)}
+        cols, pieces = self.rows
+        boards = unpack_board(cols).cpu().numpy()
+        return {_row_key(b, p) for b, p in zip(boards, pieces.cpu().numpy())}
 
     @classmethod
     def from_rows(cls, L: int, M: int, cols: torch.Tensor,
@@ -182,8 +354,8 @@ class ConfigBank:
         """A bank holding given rows (checkpoint restore, subsets); rows
         without a ``family`` are carve-family."""
         bank = cls(L, M, capacity=cols.shape[0], device=cols.device)
-        bank.cols = cols.to(torch.int32).contiguous()
-        bank.pieces = pieces.to(torch.int8).contiguous()
+        bank.rows = (cols.to(torch.int32).contiguous(),
+                     pieces.to(torch.int8).contiguous())
         if family is not None:
             bank.family[:] = family
         return bank
@@ -237,7 +409,7 @@ def make_holdout_bank(
            and time.monotonic() < t_end):
         games = generate_batch(L, M, seed_start=s, seed_end=s + 100)
         s += 100
-        for b, p in translate_batch(games, M, rng=bank._rng):
+        for b, p in translate_batch(games, M, rng=bank._rng, parity=False):
             if len(rows) >= n_forward:
                 break
             add(np.asarray(b, dtype=bool),
@@ -268,9 +440,8 @@ def make_holdout_bank(
                 break
             add(b, p)
 
-    bank.cols = pack_board(torch.as_tensor(np.stack([b for b, _ in rows]),
-                                           device=dev))
-    bank.pieces = torch.as_tensor(np.stack([p for _, p in rows]), device=dev)
+    cols, pieces = pack_host_rows(rows, P)
+    bank.rows = (cols.to(dev), pieces.to(dev))
     bank.family[:n_forward_got] = FAMILY_FORWARD
     if train_bank is not None:
         overlap = bank.row_keys() & train_bank.row_keys()

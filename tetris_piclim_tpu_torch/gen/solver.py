@@ -49,6 +49,12 @@ class GreedyDFSSolver:
         self.failed_attempts = 0
         self.stack: list[tuple[str, int, int]] = []
 
+    def reset(self) -> None:
+        self.board = np.copy(self.initial_board)
+        self.lines_cleared = 0
+        self.failed_attempts = 0
+        self.stack = []
+
     # -- board mechanics ----------------------------------------------------
 
     def _fits(self, shape: np.ndarray, row: int, col: int) -> bool:
@@ -141,3 +147,26 @@ class GreedyDFSSolver:
                 self.lines_cleared = lines_snapshot
 
         return False
+
+    # -- display --------------------------------------------------------------
+
+    def visualize(self, board=None) -> str:
+        """Board as a printable grid (reference TetrisSolver.py:81-85)."""
+        if board is None:
+            board = self.board
+        return "\n".join(
+            " ".join(str(int(c)) for c in row) for row in board
+        )
+
+    def visualize_moves(self, stack, print_fn=print) -> int:
+        """Replay a solution stack from the initial board, printing each
+        placement and the board after it (reference TetrisSolver.py:165-172).
+        Returns the lines cleared in all."""
+        self.reset()
+        for name, rotation, col in stack:
+            before = self.lines_cleared
+            self._place(GEN_SHAPES[name][rotation], col)
+            print_fn(f"Tetromino: {name}  Rotation: {rotation}  Column: {col}")
+            print_fn(f"Lines cleared: {self.lines_cleared - before}")
+            print_fn(self.visualize())
+        return self.lines_cleared

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..engine import LOSS, RUNNING, WIN, StepResult
+from ..engine import LOSS, RUNNING, WIN, StepResult, state_where
 
 H, W = tables.BOARD_H, tables.BOARD_W
 _NEG_BIG = -(1 << 20)
@@ -114,14 +114,6 @@ class PackedState(NamedTuple):
     status: torch.Tensor         # int8[N]
 
 
-def state_where(mask: torch.Tensor, a: PackedState, b: PackedState) -> PackedState:
-    """Field-wise ``where(mask, a, b)`` with ``mask`` bool[N]."""
-    return PackedState(*[
-        torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
-        for x, y in zip(a, b)
-    ])
-
-
 # -- packing -----------------------------------------------------------------
 
 def pack_board(board: torch.Tensor) -> torch.Tensor:
@@ -134,6 +126,12 @@ def unpack_board(cols: torch.Tensor) -> torch.Tensor:
     """int32[..., 10] -> bool[..., 20, 10]."""
     shifts = torch.arange(H, dtype=torch.int32, device=cols.device)[:, None]
     return ((cols.unsqueeze(-2) >> shifts) & 1).bool()
+
+
+def from_env_state(state) -> PackedState:
+    """An array-engine ``engine.EnvState`` batch as a PackedState (the
+    replay stores packed states whatever the trainer's backend)."""
+    return PackedState(pack_board(state.board), *state[1:])
 
 
 def make_state_batch(boards, pieces, lines_goal, move_limit) -> PackedState:

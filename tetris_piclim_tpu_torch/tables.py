@@ -83,6 +83,15 @@ def _build():
 MASKS, WIDTH, HEIGHT, RTOPO, NROT = _build()
 
 
+def get_tetromino(piece: int, rotations: int) -> tuple[np.ndarray, tuple[int, ...]]:
+    """The unpadded bool mask of ``piece`` at ``rotations`` (modulo its
+    rotation count) and its reverse topography, as the reference's lookup
+    (game/tetris.py:60-61); the host carver and ``env_api`` use it."""
+    r = rotations % int(NROT[piece])
+    h, w = int(HEIGHT[piece, r]), int(WIDTH[piece, r])
+    return MASKS[piece, r, :h, :w], tuple(int(x) for x in RTOPO[piece, r, :w])
+
+
 # Generator flavor (reference TetrisGameGenerator.py:5-13): the rotation
 # ORDER differs from the engine's, so seeded ``randint(0, nrot - 1)`` draws
 # map to the reference's shapes.

@@ -1,10 +1,10 @@
 """Configuration dataclasses — every knob the reference hardcodes, surfaced.
 
 A copy of ``tetris_piclim_tpu/utils/config.py`` (same fields and defaults,
-so a config JSON serves both packages). Every DQN and demonstration field
-is ported. Not read by the port yet: ``bank_carve_fraction`` (the host
-bank fill; the port's default bank is the device carver) and
-``parity_translate`` (the host producers), both ROADMAP.md item A15.
+so a config JSON serves both packages). ``bank_carve_fraction`` sets the
+trainer's default host bank, as in JAX. ``EnvConfig.parity_translate`` is
+read by neither trainer; ``ConfigBank`` and ``env_api.Tetris`` take the
+parity mode as an argument.
 
 The reference scatters its configuration across constructor kwargs
 (game/tetris.py:141), a "MODIFIABLE PARAMETERS" block
