@@ -49,8 +49,17 @@ drives the port's two paths through the entry points a user calls:
     ``step_autoreset_curriculum`` against the CPU's word for word, a few
     chunks, and the per-level greedy evaluation;
 13. ``cli play`` (the recorded solution, and greedy from the phase-10
-    checkpoint on the card) and ``cli bench`` (the rollout kernel at the
-    benchmark shape, beside phase 1's rate).
+    checkpoint on the card) and ``cli bench --no-train``
+    (``bench.run(train=False)``: the rollout kernel at the benchmark shape,
+    beside phase 1's rate);
+14. ``make_state_batch`` of both engines with per-env goals and move
+    limits, card against CPU word for word through a few steps;
+15. the training benchmark, ``bench_mfu.measure``, at full width (2048
+    envs, conv (32,64) + dueling + joint with a bf16 torso, L=5/M=25, a
+    1024-row device bank, 4 updates per step) with its chunk cut from 512
+    steps to 32: the card's BF16 peak is known, and the chunk, learner and
+    actor MFU each lie in (0, 1]; then a tiny ``cli train --profile-dir``
+    whose ``torch.profiler`` trace parses and holds CUDA kernel events.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -1212,6 +1221,84 @@ def phase_curriculum() -> dict:
             "eval_win_rates": [r["win_rate"] for r in ev], "eval_s": eval_s}
 
 
+def phase_per_env_goals() -> dict:
+    """``make_state_batch`` with per-env goals and limits (numpy on one side,
+    tensors on the card on the other), card against CPU word for word."""
+    n, M = 4096, 20
+    print(f"per-env goals: N={n}, goals 1..5, limits 4..19, both engines, card vs CPU")
+    rng = np.random.default_rng(6)
+    boards = adversarial_boards(rng, n)
+    pieces = rng.integers(0, 7, (n, M + 1))
+    goals = np.arange(n) % 5 + 1
+    limits = np.arange(n) % 16 + 4
+    ended = 0
+    for name, mod in (("bitboard", bb), ("array", array_engine)):
+        card = mod.make_state_batch(torch.as_tensor(boards, device=DEV),
+                                    torch.as_tensor(pieces, device=DEV),
+                                    torch.as_tensor(goals, device=DEV),
+                                    torch.as_tensor(limits, device=DEV))
+        cpu = mod.make_state_batch(torch.as_tensor(boards), torch.as_tensor(pieces),
+                                   goals, limits)
+        check(torch.equal(card.lines_goal.cpu(), torch.as_tensor(goals, dtype=torch.int32))
+              and torch.equal(card.move_limit.cpu(), torch.as_tensor(limits, dtype=torch.int32)),
+              f"{name}: per-env goals and limits on the card")
+        for _ in range(8):
+            rot, loc = rng.integers(0, 4, n), rng.integers(0, 10, n)
+            card = mod.step(card, torch.as_tensor(rot, device=DEV),
+                            torch.as_tensor(loc, device=DEV)).state
+            cpu = mod.step(cpu, torch.as_tensor(rot), torch.as_tensor(loc)).state
+        check(all(torch.equal(x.cpu(), y) for x, y in zip(card, cpu)),
+              f"{name}: 8 steps, card = CPU word for word")
+        ended = int((cpu.status != 0).sum())
+    return {"envs": n, "ended_after_8_steps": ended}
+
+
+def phase_profile_mfu() -> dict:
+    """The training benchmark at full width, its chunk cut from 512 steps to
+    32, then a profiled tiny ``cli train`` (no kernel of the port runs:
+    ``measure`` is the per-step path, ``actor_fusion=0``, as in JAX)."""
+    from tetris_piclim_tpu_torch import bench_mfu
+    from tetris_piclim_tpu_torch.utils import mfu as mfu_lib
+
+    scan, updates = 32, 4
+    print(f"bench_mfu.measure: 2048 envs, conv (32,64) dueling joint, bf16 "
+          f"torso, L=5/M=25, bank 1024, {updates} updates per step; the chunk "
+          f"cut from 512 steps to {scan}")
+    peak = mfu_lib.peak_flops(DEV)
+    check(peak is not None, f"BF16 peak of {torch.cuda.get_device_name(0)}: {peak}")
+    with cudnn_tf32():
+        mm = bench_mfu.measure(num_envs=2048, scan=scan, updates=updates,
+                               bf16=True, device=DEV)
+    for k in ("chunk_mfu", "learner_mfu", "actor_mfu"):
+        check(mm[k] is not None and 0 < mm[k] <= 1, f"{k} = {mm[k]} in (0, 1]")
+    check(0 < mm["learner_share_of_chunk"] <= 1.05,
+          f"learner share of the chunk {mm['learner_share_of_chunk']} in (0, 1.05]")
+    ms_per_update = mm["learner_s_per_chunk_equiv"] / (scan * updates) * 1e3
+    print(f"  {mm['chunk_env_steps_per_s']:.4e} env-steps/s, chunk MFU "
+          f"{mm['chunk_mfu']}, learner {ms_per_update:.3f} ms per update "
+          f"({mm['learner_gflops_per_update']} GFLOP), actor forward "
+          f"{mm['actor_forward_us']} us")
+
+    logdir = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    print("cli train --profile-dir: L=1/M=8, 64 envs, 8 steps")
+    try:
+        run_cli(["train", "-L", "1", "-M", "8", "--num-envs", "64", "--bank", "64",
+                 "--device-bank", "--replay", "1024", "--warmup", "64", "--steps",
+                 "8", "--log-every", "4", "--eval-episodes", "64",
+                 "--profile-dir", str(logdir)])
+        traces = list(logdir.glob("*.json"))
+        check(len(traces) == 1, f"one trace written: {[t.name for t in traces]}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        check(kernels > 0, f"the trace parses: {len(events)} events, "
+              f"{kernels} CUDA kernel events")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    return {"measure": mm, "scan_cut_from": 512, "learner_ms_per_update": ms_per_update,
+            "trace_events": len(events), "trace_kernel_events": kernels}
+
+
 def run_cli(argv: list) -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1230,9 +1317,9 @@ def phase_cli(ckpt: str, rollout_rate: float) -> dict:
     check(greedy["result"] in ("win", "loss") and 0 < greedy["moves_used"] <= 20,
           f"play --policy greedy from the default-bank trainer: {greedy}")
     shutil.rmtree(ckpt, ignore_errors=True)
-    print("cli bench: N=8192, K=1024, host-filled bank 256, 5 repeats")
+    print("cli bench --no-train: N=8192, K=1024, host-filled bank 256, 5 repeats")
     _build.reset_launch_counts()
-    res = run_cli(["bench"])
+    res = run_cli(["bench", "--no-train"])
     launches = _build.LAUNCHES["rollout"]
     check(launches == 6, f"bench launched the rollout kernel {launches}x (1 + 5 repeats)")
     check(sorted(res) == ["metric", "unit", "value", "vs_baseline"]
@@ -1274,6 +1361,8 @@ def main() -> int:
     array = phase_array_engine()
     curriculum = phase_curriculum()
     cli_res = phase_cli(default.pop("ckpt"), r_bench["env_steps_per_s"])
+    goals = phase_per_env_goals()
+    prof = phase_profile_mfu()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1308,7 +1397,20 @@ def main() -> int:
                       "default_bank_trainer": {k: v for k, v in default.items()
                                                if k != "launches"},
                       "array_engine": array, "curriculum": curriculum,
-                      "cli": cli_res}))
+                      "cli": cli_res, "per_env_goals": goals}))
+    mm = prof["measure"]
+    print(json.dumps({"training_benchmark": {
+        "scan": mm["scan"], "scan_cut_from": prof["scan_cut_from"],
+        "train_env_steps_per_s": mm["chunk_env_steps_per_s"],
+        "chunk_mfu": mm["chunk_mfu"], "learner_mfu": mm["learner_mfu"],
+        "actor_mfu": mm["actor_mfu"],
+        "learner_share_of_chunk": mm["learner_share_of_chunk"],
+        "learner_gflops_per_update": mm["learner_gflops_per_update"],
+        "learner_ms_per_update": prof["learner_ms_per_update"],
+        "actor_forward_us": mm["actor_forward_us"],
+        "actor_gflops_per_call": mm["actor_gflops_per_call"],
+        "peak_tflops_bf16": mm["peak_tflops_bf16"], "device_kind": mm["device_kind"],
+        "trace_kernel_events": prof["trace_kernel_events"]}}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

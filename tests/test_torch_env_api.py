@@ -229,7 +229,9 @@ def test_cli_play_greedy_from_port_checkpoint(tmp_path, capsys):
 
 
 def test_bench_small():
-    res = bench.run(num_envs=64, steps=16, bank=16, L=1, M=8, repeats=2, device="cpu")
+    res = bench.run(num_envs=64, steps=16, bank=16, L=1, M=8, repeats=2, device="cpu",
+                    train=False)
+    assert "train_mfu" not in res
     assert (res["metric"], res["unit"]) == ("env_steps_per_sec_per_chip", "steps/s")
     assert res["value"] > 0 and res["vs_baseline"] == round(res["value"] / 49_000.0, 2)
     assert res["device"] == "cpu" and len(res["repeats_s"]) == 2

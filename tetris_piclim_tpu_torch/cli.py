@@ -1,7 +1,9 @@
 """Command-line interface of the PyTorch port: ``train`` (the DQN loop),
 ``curriculum`` (the curriculum trainer), ``eval`` (greedy win rate),
 ``generate`` (winnable configurations, both families), ``play`` (one
-episode of the single-env API) and ``bench`` (env-step throughput).
+episode of the single-env API) and ``bench`` (env-step throughput, and the
+flagship training recipe's env-steps/s, MFU and learner share unless
+``--no-train``; ``bench.py``'s keys).
 
 Usage: ``python -m tetris_piclim_tpu_torch <command> [flags]``. The flags
 are those of ``tetris_piclim_tpu.cli``, plus ``--device {cuda,cpu}`` on the
@@ -13,7 +15,10 @@ buffer) and keeps every other flag. ``train --config FILE`` reads a
 overrides the file, as in the JAX CLI; here that covers every flag that maps
 to a config field (the JAX CLI's list leaves out ``--lr``, ``--opt-bf16``,
 ``--actor-fusion`` and the demo flags). Without ``--device-bank`` the bank
-is the trainer's default host fill, as in JAX.
+is the trainer's default host fill, as in JAX. ``train --profile-dir DIR``
+writes a ``torch.profiler`` trace of the training loop into DIR
+(``utils/profiling.py::device_trace``), as the JAX CLI writes a
+``jax.profiler`` one.
 """
 
 from __future__ import annotations
@@ -162,6 +167,7 @@ def cmd_train(args) -> int:
     from .dqn.train import DQNTrainer
     from .utils.checkpoint import save_bank, save_train_state
     from .utils.metrics import MetricsLogger
+    from .utils.profiling import device_trace
 
     cfg = _config(args)
     height = _parse_height(args.device_height)
@@ -184,15 +190,16 @@ def cmd_train(args) -> int:
         print(f"resumed from {args.resume} at step "
               f"{trainer.state.global_step}", file=sys.stderr)
     logger = MetricsLogger(path=args.log_file)
-    trainer.train(log_fn=lambda msg: print(msg, file=sys.stderr),
-                  refresh_bank=args.refresh_bank,
-                  device_refresh_every=args.device_refresh,
-                  device_forward_fraction=args.device_forward,
-                  device_beam_width=args.device_beam,
-                  device_height=height,
-                  adaptive_share=args.adaptive_share,
-                  adapt_every=args.adapt_every,
-                  adapt_rule=args.adapt_rule)
+    with device_trace(args.profile_dir):
+        trainer.train(log_fn=lambda msg: print(msg, file=sys.stderr),
+                      refresh_bank=args.refresh_bank,
+                      device_refresh_every=args.device_refresh,
+                      device_forward_fraction=args.device_forward,
+                      device_beam_width=args.device_beam,
+                      device_height=height,
+                      adaptive_share=args.adaptive_share,
+                      adapt_every=args.adapt_every,
+                      adapt_rule=args.adapt_rule)
     if args.checkpoint:
         final = (f"{args.checkpoint}/final" if args.checkpoint_every > 0
                  else args.checkpoint)
@@ -344,8 +351,10 @@ def cmd_play(args) -> int:
 def cmd_bench(args) -> int:
     from .bench import run
 
-    res = run(device=args.device)
-    keys = ("metric", "value", "unit", "vs_baseline")
+    res = run(device=args.device, train=not args.no_train)
+    keys = ("metric", "value", "unit", "vs_baseline", "train_env_steps_per_s",
+            "train_mfu", "train_learner_share")
+    keys = tuple(k for k in keys if k in res)
     print(json.dumps({k: res[k] for k in keys}))
     print("# " + " ".join(f"{k}={v}" for k, v in res.items() if k not in keys),
           file=sys.stderr)
@@ -471,6 +480,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warm-start", help="load only the network weights of a "
                                         "checkpoint (same architecture)")
     p.add_argument("--log-file", help="JSONL metrics path")
+    p.add_argument("--profile-dir", help="write a torch.profiler trace of the "
+                   "training loop here (TensorBoard / Chrome trace JSON)")
     p.add_argument("--smoke", action="store_true",
                    help="tiny sizes (see the module docstring)")
     p.add_argument("--config", help="TrainConfig JSON file; flags set to "
@@ -534,6 +545,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_play)
 
     p = sub.add_parser("bench", help="env-step throughput benchmark")
+    p.add_argument("--no-train", action="store_true",
+                   help="leave out the training recipe's env-steps/s, MFU and "
+                        "learner share (bench.py's BENCH_NO_MFU)")
     device_flag(p)
     p.set_defaults(fn=cmd_bench)
 

@@ -68,8 +68,16 @@ def _tables(device: torch.device):
             t(tables.RTOPO, torch.int64), t(tables.NROT, torch.int64))
 
 
+def per_env(x, n: int, device: torch.device) -> torch.Tensor:
+    """int32[n] on ``device`` from a scalar or an [n] array (a Python int,
+    numpy or a tensor), broadcast as ``jnp.broadcast_to`` does."""
+    x = torch.as_tensor(x).to(device=device, dtype=torch.int32)
+    return x.broadcast_to((n,)).clone()
+
+
 def make_state_batch(boards, pieces, lines_goal, move_limit) -> EnvState:
-    """Fresh states from boards bool[N, 20, 10] and pieces [N, P] (copied)."""
+    """Fresh states from boards bool[N, 20, 10] and pieces [N, P] (copied);
+    ``lines_goal`` and ``move_limit`` are scalars or per-env [N] arrays."""
     boards = torch.as_tensor(boards).to(torch.bool).clone()
     n, dev = boards.shape[0], boards.device
     z = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -79,8 +87,8 @@ def make_state_batch(boards, pieces, lines_goal, move_limit) -> EnvState:
         cursor=z,
         lines_cleared=z.clone(),
         moves_used=z.clone(),
-        lines_goal=torch.full((n,), int(lines_goal), dtype=torch.int32, device=dev),
-        move_limit=torch.full((n,), int(move_limit), dtype=torch.int32, device=dev),
+        lines_goal=per_env(lines_goal, n, dev),
+        move_limit=per_env(move_limit, n, dev),
         status=torch.zeros((n,), dtype=torch.int8, device=dev),
     )
 
@@ -186,6 +194,11 @@ def observe(state: EnvState) -> torch.Tensor:
                      (state.move_limit - state.moves_used).float(),
                      status_f], dim=1),
     ], dim=1)
+
+
+# the JAX engine's vmapped names; this engine is batch first by construction
+step_batch = step
+observe_batch = observe
 
 
 def reset_from_bank(bank_boards: torch.Tensor, bank_pieces: torch.Tensor,

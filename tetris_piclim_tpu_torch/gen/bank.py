@@ -97,7 +97,8 @@ class ConfigBank:
         # seeds from _rng, refresh target rows from _np_rng
         self._rng = random.Random(seed)
         self._np_rng = np.random.default_rng(seed)
-        self._lock = threading.Lock()
+        # reentrant: refresh_device holds it across fill_device
+        self._lock = threading.RLock()
         self.rows: Optional[tuple[torch.Tensor, torch.Tensor]] = None
         self.family = np.zeros(capacity, dtype=np.int8)
         self._refresh_writes = 0
@@ -204,11 +205,13 @@ class ConfigBank:
                     beam_width: int = 8) -> "ConfigBank":
         """Fill every row on the device: carves, and a ``forward_fraction``
         share of proven forward-family rows (rows [0:n] of the bank).
-        ``seed`` starts a fresh stream, None continues the bank's own."""
-        cols, pieces, n_got = self._device_rows(
-            self._generator(seed), forward_fraction, initial_height_max,
-            oversample, beam_width)
+        ``seed`` starts a fresh stream, None continues the bank's own.
+        The bank's lock is held across the generation, so host rows that a
+        producer sends meanwhile land after it, in the new rows."""
         with self._lock:
+            cols, pieces, n_got = self._device_rows(
+                self._generator(seed), forward_fraction, initial_height_max,
+                oversample, beam_width)
             self.rows = (cols, pieces)
             self.family[:] = FAMILY_CARVE
             self.family[:n_got] = FAMILY_FORWARD
@@ -223,14 +226,16 @@ class ConfigBank:
         ``forward_fraction == 0``: the carve-family rows are regenerated and
         the forward-family rows (those of the host producers too) kept.
         ``forward_fraction > 0``: the whole bank is regenerated as a carve +
-        proven-forward mix, as by :meth:`fill_device`."""
-        if forward_fraction > 0 or self.rows is None:
-            return self.fill_device(seed, forward_fraction, initial_height_max,
-                                    oversample, beam_width)
-        batch = device_carver.generate_batch_device(
-            self.capacity, self.L, self.M, generator=self._generator(seed),
-            device=self.device)
+        proven-forward mix, as by :meth:`fill_device`. As in JAX, the bank's
+        lock is held across the generation: a producer's
+        :meth:`_swap_rows` waits and lands in the new rows."""
         with self._lock:
+            if forward_fraction > 0 or self.rows is None:
+                return self.fill_device(seed, forward_fraction, initial_height_max,
+                                        oversample, beam_width)
+            batch = device_carver.generate_batch_device(
+                self.capacity, self.L, self.M, generator=self._generator(seed),
+                device=self.device)
             carve = torch.as_tensor(self.family == FAMILY_CARVE,
                                     device=self.device)[:, None]
             cols, pieces = self.rows

@@ -121,3 +121,16 @@ class ForwardGenerator:
             self._rng.shuffle(bag)
             out.extend(bag)
         return out[:length]
+
+
+def generate_board_and_sequence(
+    seed: int, num_pieces: int, initial_height_max: int, goal: int = 0
+) -> tuple[np.ndarray, list[str]]:
+    """Reference-compatible helper (TetrisGameGenerator.py:115-117)."""
+    g = ForwardGenerator(
+        seed=seed,
+        goal=goal,
+        num_pieces=num_pieces,
+        initial_height_max=initial_height_max,
+    )
+    return g.board, g.sequence

@@ -230,3 +230,15 @@ def q_ops(q_dim: int):
     if q_dim == JOINT_DIM:
         return JointQ
     raise ValueError(f"unrecognized Q head width {q_dim} (expected 14 or 40)")
+
+
+def init_qnet(generator: torch.Generator | None = None,
+              action_dim: int = ACTION_DIM) -> QNetwork:
+    """A flax-initialised plain ``QNetwork`` with a head of ``action_dim``
+    outputs (14, the factored head, or 40, the joint one), drawn from the
+    CPU ``generator``. The JAX ``init_qnet(key, action_dim)`` returns the
+    module and its parameter tree; a torch module holds its parameters, so
+    this returns the module alone."""
+    if action_dim not in (ACTION_DIM, JOINT_DIM):
+        raise ValueError(f"Q head width {action_dim}: want {ACTION_DIM} or {JOINT_DIM}")
+    return QNetwork(joint=action_dim == JOINT_DIM, generator=generator)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..engine import LOSS, RUNNING, WIN, StepResult, state_where
+from ..engine import LOSS, RUNNING, WIN, StepResult, per_env, state_where
 
 H, W = tables.BOARD_H, tables.BOARD_W
 _NEG_BIG = -(1 << 20)
@@ -135,7 +135,8 @@ def from_env_state(state) -> PackedState:
 
 
 def make_state_batch(boards, pieces, lines_goal, move_limit) -> PackedState:
-    """Fresh states from boards (int32[N, 10] packed or bool[N, 20, 10])."""
+    """Fresh states from boards (int32[N, 10] packed or bool[N, 20, 10]);
+    ``lines_goal`` and ``move_limit`` are scalars or per-env [N] arrays."""
     boards = torch.as_tensor(boards)
     cols = boards if boards.dtype == torch.int32 else pack_board(boards.bool())
     n, dev = cols.shape[0], cols.device
@@ -146,8 +147,8 @@ def make_state_batch(boards, pieces, lines_goal, move_limit) -> PackedState:
         cursor=z,
         lines_cleared=z.clone(),
         moves_used=z.clone(),
-        lines_goal=torch.full((n,), int(lines_goal), dtype=torch.int32, device=dev),
-        move_limit=torch.full((n,), int(move_limit), dtype=torch.int32, device=dev),
+        lines_goal=per_env(lines_goal, n, dev),
+        move_limit=per_env(move_limit, n, dev),
         status=torch.zeros((n,), dtype=torch.int8, device=dev),
     )
 
@@ -290,6 +291,16 @@ def obs_from_fields(cols, cur, nxt, lines_left, moves_left, status) -> torch.Ten
 def observe(state: PackedState) -> torch.Tensor:
     """float32[N, 217] observation of ``state`` (see :func:`obs_from_fields`)."""
     return obs_from_fields(*packed_fields(state))
+
+
+# the JAX module's batch names; this module is batch first by construction
+step_batch = step
+observe_batch = observe
+
+
+def to_board(state: PackedState) -> torch.Tensor:
+    """bool[N, 20, 10] boards of ``state``."""
+    return unpack_board(state.cols)
 
 
 def reset_from_bank(state: PackedState, bank_cols: torch.Tensor,
