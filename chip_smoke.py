@@ -76,6 +76,7 @@ import dataclasses
 import io
 import json
 import multiprocessing
+import os
 import random
 import shutil
 import subprocess
@@ -1299,6 +1300,217 @@ def phase_profile_mfu() -> dict:
             "trace_events": len(events), "trace_kernel_events": kernels}
 
 
+# -- phase 16: data-parallel training (parallel/) --------------------------------
+
+MULTIGPU_DIR = ROOT / "build" / "chip_smoke_multigpu"
+MULTIGPU_TIMEOUT = 420.0   # seconds a launch of the ranks may take
+
+
+def multigpu_recipes() -> dict:
+    """(a)'s recipes: name -> (config, net maker)."""
+    return {"mlp_fused": (train_config(8, 2, 64), lambda: None),
+            "flagship_per_step": (recipe_config(5, 25, 2, 32), lambda: flagship_net(0))}
+
+
+def config_bank(cfg: TrainConfig) -> ConfigBank:
+    return ConfigBank(cfg.env.L, cfg.env.M, capacity=cfg.bank_capacity, seed=0,
+                      device=DEV).fill_device()
+
+
+def deterministic_card() -> None:
+    """TF32 off, as in main(), and cuDNN's and PyTorch's deterministic
+    algorithms, so that two runs of one program agree bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def metrics_of(row: dict) -> dict:
+    return {k: row[k] for k in ("episodes", "win_rate", "lines", "reward", "loss",
+                                "q_mean", "updates")}
+
+
+def worker_one_rank_nccl(out: Path) -> dict:
+    """(a), in a child: each recipe trained without a mesh and on a
+    one-rank NCCL mesh from the same seed, in turns (plain, mesh, mesh,
+    plain, since the host's speed drifts within a process); every run must
+    agree word for word with the first."""
+    from tetris_piclim_tpu_torch.parallel import init_distributed, make_mesh
+
+    deterministic_card()
+    info = init_distributed(device=DEV)
+    mesh = make_mesh(device=DEV)
+    res = {"backend": info["backend"], "world": mesh.size, "recipes": {}}
+    for name, (cfg, make_net) in multigpu_recipes().items():
+        bank = config_bank(cfg)
+        runs = []
+        for label, m in (("plain", None), ("mesh", mesh), ("mesh", mesh),
+                         ("plain", None)):
+            trainer = DQNTrainer(cfg, bank=bank, net=make_net(), device=DEV, mesh=m)
+            _build.reset_launch_counts()
+            hist = trainer.train(log_fn=None)["history"]
+            sync()
+            runs.append((label, trainer.state, hist, _build.LAUNCHES["actor"]))
+        _, a, ha, _ = runs[0]
+        same = {"params_equal": True, "env_equal": True, "metrics_equal": True}
+        for _, b, hb, _ in runs[1:]:
+            same["params_equal"] &= all(torch.equal(x, y) for x, y in zip(
+                a.net.state_dict().values(), b.net.state_dict().values()))
+            same["env_equal"] &= all(torch.equal(x, y) for x, y in zip(a.env, b.env))
+            same["metrics_equal"] &= ([metrics_of(x) for x in ha]
+                                      == [metrics_of(y) for y in hb])
+        rate = {label: [] for label in ("plain", "mesh")}
+        ms = {label: [] for label in ("plain", "mesh")}
+        for label, _, h, _ in runs:
+            rate[label].append(h[-1]["steps_per_s"])
+            ms[label].append(learner_ms_per_update(h[-1], cfg.num_envs, cfg.log_every))
+        res["recipes"][name] = {
+            **same, "updates": runs[1][1].updates_done,
+            "actor_launches_mesh": runs[1][3], "episodes": ha[-1]["episodes"],
+            "env_steps_per_s": rate, "ms_per_update": ms}
+    return res
+
+
+def two_rank_configs() -> tuple:
+    """(b)'s per-step and fused configs: the L=2/M=20 recipe at full width,
+    3 learning steps, and one fused phase of 8 steps."""
+    per_step = dataclasses.replace(train_config(0, 1, 3), warmup_steps=1)
+    return per_step, train_config(8, 1, 8)
+
+
+def worker_two_ranks_gloo(out: Path) -> dict:
+    """(b), in each of two children on the one card: the per-step chunk and
+    a fused phase on a 2-rank gloo mesh; rank 0 writes what the parent
+    checks against one process."""
+    from tetris_piclim_tpu_torch.parallel import init_distributed, make_mesh
+    from tetris_piclim_tpu_torch.parallel.mesh import all_gather
+
+    deterministic_card()
+    info = init_distributed(device=DEV)
+    mesh = make_mesh(device=DEV)
+    per_step, fused = two_rank_configs()
+    bank = config_bank(per_step)
+    dumps = {}
+    for name, cfg, steps in (("per_step", per_step, 3), ("fused", fused, 8)):
+        trainer = DQNTrainer(cfg, bank=bank, device=DEV, mesh=mesh)
+        m = trainer.run_chunk(steps)
+        env = {k: all_gather(mesh, v).flatten(0, 1).cpu()
+               for k, v in trainer.state.env._asdict().items()}
+        dumps[name] = {"episodes": int(m.episodes), "wins": int(m.wins),
+                       "reward": float(m.reward), "env": env,
+                       "updates": trainer.state.updates_done,
+                       "net": {k: v.cpu() for k, v in trainer.state.net.state_dict().items()}}
+    if mesh.is_root:
+        torch.save(dumps, out / "two_ranks.pt")
+    return {"backend": info["backend"], "world": mesh.size,
+            "device": info["device"]}
+
+
+def phase_multigpu() -> dict:
+    """Data-parallel training over torch.distributed (A18). One card holds
+    one NCCL rank, so (a) a one-rank NCCL mesh in a child process, word for
+    word against the trainer without a mesh, and (b) two gloo ranks in two
+    children sharing the card, against one process. No scaling is measured."""
+    from tetris_piclim_tpu_torch.parallel.distributed import launch_local
+
+    shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+    MULTIGPU_DIR.mkdir(parents=True)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # for the children
+    try:
+        print("multi-GPU (a): one NCCL rank, L=2/M=20 MLP fused (4096 envs, 2x64 "
+              "steps) and the flagship per-step net (L=5/M=25, 2048 envs, 4 "
+              "updates, 2x32 steps), each against no mesh, in turns")
+        t0 = time.perf_counter()
+        out = launch_local(1, [ROOT / "chip_smoke.py", "--multigpu-worker", "nccl1",
+                               MULTIGPU_DIR], timeout=MULTIGPU_TIMEOUT)
+        a = json.loads(out[0].strip().splitlines()[-1])
+        check(a["backend"] == "nccl" and a["world"] == 1,
+              f"child joined a one-rank {a['backend']} group "
+              f"({time.perf_counter() - t0:.1f} s)")
+        for name, r in a["recipes"].items():
+            check(r["params_equal"] and r["env_equal"] and r["metrics_equal"],
+                  f"{name}: one-rank NCCL mesh = no mesh, word for word "
+                  f"(parameters, env state, chunk metrics; {r['updates']} updates)")
+            rate, ms = r["env_steps_per_s"], r["ms_per_update"]
+            print(f"  {name}: env-steps/s {rate['plain']} without a mesh, "
+                  f"{rate['mesh']} with it; ms per update {ms['plain']} and "
+                  f"{ms['mesh']}")
+        phases = 2 * 64 // 8
+        launches = a["recipes"]["mlp_fused"]["actor_launches_mesh"]
+        check(launches == phases,
+              f"actor kernel launched {launches}x = {phases} phases under the mesh")
+
+        print("multi-GPU (b): two gloo ranks on one card, L=2/M=20, 4096 envs: "
+              "3 per-step steps, one fused phase of 8")
+        t0 = time.perf_counter()
+        outs = launch_local(2, [ROOT / "chip_smoke.py", "--multigpu-worker", "gloo2",
+                                MULTIGPU_DIR], timeout=MULTIGPU_TIMEOUT)
+        b = json.loads(outs[0].strip().splitlines()[-1])
+        check(b["backend"] == "gloo" and b["world"] == 2,
+              f"two ranks joined a gloo group on {b['device']} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        got = torch.load(MULTIGPU_DIR / "two_ranks.pt", weights_only=False)
+        check_two_ranks(got)
+        return {"one_rank_nccl": a["recipes"], "two_rank_gloo_s": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+
+
+def check_two_ranks(got: dict) -> None:
+    """(b)'s checks, against one process on the card: the per-step chunk as
+    ``tests/test_parallel.py`` holds JAX's sharded chunk (episodes and wins
+    exact, reward rtol 1e-5, parameters atol 1e-5), the fused phase word for
+    word against the actor on each half with seed and seed + 7919."""
+    per_step, fused = two_rank_configs()
+    bank = config_bank(per_step)
+    one = DQNTrainer(per_step, bank=bank, device=DEV)
+    m = one.run_chunk(3)
+    g = got["per_step"]
+    check(g["updates"] == one.state.updates_done > 0
+          and g["episodes"] == int(m.episodes) and g["wins"] == int(m.wins),
+          f"per-step: {g['updates']} updates, episodes {g['episodes']} and wins "
+          f"{g['wins']} as one process")
+    check(abs(g["reward"] - float(m.reward)) <= 1e-5 * abs(float(m.reward)),
+          f"per-step: reward {g['reward']} vs {float(m.reward)} (rtol 1e-5)")
+    diff = max(float((g["net"][k] - v.cpu()).abs().max())
+               for k, v in one.state.net.state_dict().items())
+    check(diff <= 1e-5, f"per-step: parameters within {diff:.3g} <= 1e-5")
+    check(all(torch.equal(g["env"][k], v.cpu()) for k, v in one.state.env._asdict().items()),
+          "per-step: env state equal")
+
+    one = DQNTrainer(fused, bank=bank, device=DEV)
+    ts, dqn, K = one.state, fused.dqn, fused.actor_fusion
+    cols, pieces = bank.rows
+    kb = min(256, cols.shape[0])
+    off = int(torch.randint(0, cols.shape[0] - kb + 1, (), generator=ts.host_gen))
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=ts.host_gen))
+    half = fused.num_envs // 2
+    halves, episodes, wins = [], 0, 0
+    for r in range(2):
+        env = bb.PackedState(*[f[r * half:(r + 1) * half].contiguous() for f in ts.env])
+        env, _, e, w = actor_ops.actor_rollout_fused(
+            env, ts.net, cols[off:off + kb], pieces[off:off + kb], 0, seed + r * 7919,
+            eps_start=dqn.eps_start, eps_end=dqn.eps_end, eps_decay=dqn.eps_decay,
+            n_steps=K)
+        halves.append(env)
+        episodes, wins = episodes + int(e), wins + int(w)
+    g = got["fused"]
+    check(all(torch.equal(g["env"][k], torch.cat([h[i] for h in halves]).cpu())
+              for i, k in enumerate(bb.PackedState._fields)),
+          "fused: each rank's envs = the actor kernel on its half with seed + rank*7919")
+    check((g["episodes"], g["wins"]) == (episodes, wins),
+          f"fused: episodes {g['episodes']} and wins {g['wins']} summed over the ranks")
+
+
+def multigpu_worker(kind: str, out: str) -> int:
+    res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo}[kind](Path(out))
+    print(json.dumps(res), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def run_cli(argv: list) -> dict:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1363,6 +1575,7 @@ def main() -> int:
     cli_res = phase_cli(default.pop("ckpt"), r_bench["env_steps_per_s"])
     goals = phase_per_env_goals()
     prof = phase_profile_mfu()
+    multi = phase_multigpu()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1411,6 +1624,7 @@ def main() -> int:
         "actor_gflops_per_call": mm["actor_gflops_per_call"],
         "peak_tflops_bf16": mm["peak_tflops_bf16"], "device_kind": mm["device_kind"],
         "trace_kernel_events": prof["trace_kernel_events"]}}))
+    print(json.dumps({"multigpu": multi, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
@@ -1421,4 +1635,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--multigpu-worker":
+        sys.exit(multigpu_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

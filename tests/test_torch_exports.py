@@ -28,7 +28,7 @@ from tetris_piclim_tpu_torch.models import qnet as tqnet
 from tetris_piclim_tpu_torch.ops import bitboard as tbb
 
 ROOT = Path(__file__).resolve().parents[1]
-SUBPACKAGES = ["", "dqn", "gen", "models", "ops", "utils"]
+SUBPACKAGES = ["", "dqn", "gen", "models", "ops", "utils", "parallel"]
 # JAX names the port does not export, each written down in its __init__
 NOT_PORTED = {
     "dqn": {"ReplayState", "replay_init", "replay_add", "replay_sample",
@@ -66,14 +66,19 @@ def test_jax_init_names_resolve_in_port(sub):
 
 
 def test_parallel_waits_for_multi_gpu():
-    assert (ROOT / "tetris_piclim_tpu" / "parallel" / "__init__.py").exists()
-    assert not (ROOT / "tetris_piclim_tpu_torch" / "parallel").exists()
+    """The port's ``parallel`` (A18) gives JAX's names plus
+    ``dryrun_multigpu``, in place of ``__graft_entry__.dryrun_multichip``."""
+    from tetris_piclim_tpu_torch import parallel
+
+    assert set(parallel.__all__) == jax_init_names("parallel") | {
+        "init_distributed", "sync_hosts", "dryrun_multigpu"}
+    assert parallel.dryrun_multigpu.__module__.endswith("parallel.dryrun")
 
 
 _LAZY_PROBE = r"""
 import json, sys
 import tetris_piclim_tpu_torch as p
-from tetris_piclim_tpu_torch import dqn, gen, models, ops, utils
+from tetris_piclim_tpu_torch import dqn, gen, models, ops, parallel, utils
 seen = ["torch" in sys.modules]
 p.tables, p.__version__, utils.TrainConfig, gen.generate_board_and_sequence
 seen.append("torch" in sys.modules)

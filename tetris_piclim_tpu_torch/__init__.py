@@ -18,7 +18,10 @@ import it. What differs from the JAX package's names:
   ``replay_sample`` / ``replay_sample_ext`` / ``replay_update_priority``;
 * ``models.init_qnet`` takes a ``torch.Generator`` and returns the module
   alone (it holds its parameters);
-* ``parallel`` (meshes, multi-device training) is not ported yet.
+* ``parallel``: a mesh is a ``torch.distributed`` group of processes, one
+  device each (``parallel.Mesh``), and ``DQNTrainer(mesh=)`` lays itself
+  out on it; ``dryrun_multigpu`` stands for ``__graft_entry__.py``'s
+  ``dryrun_multichip``.
 """
 
 from ._lazy import lazy_exports

@@ -81,14 +81,22 @@ def greedy_rollout(net: nn.Module, env, n_steps: int, backend):
 
 
 def td_loss(net: nn.Module, target_net: nn.Module, batch: Batch,
-            cfg: DQNConfig) -> tuple[torch.Tensor, dict]:
+            cfg: DQNConfig, mask: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, dict]:
     """Huber TD loss (mean over the batch, each sample scaled by its
     importance weight under PER) on the online net's Q.
 
     ``double_dqn`` selects next actions with the online net and evaluates
     them with the target net; otherwise the max over the target net. The
     bootstrap is discounted by ``batch.discount`` (gamma^(k*+1) for n-step
-    batches), else by ``cfg.gamma``."""
+    batches), else by ``cfg.gamma``.
+
+    ``mask`` (float32[B], 0 or 1) keeps the rows this rank owns on a mesh:
+    the loss, ``q_mean`` and ``td_abs`` are then this rank's share of the
+    batch's, sums over its rows divided by the whole batch size B, and
+    ``td_abs_per_sample`` is 0 on the other rows. The mean is always taken
+    as a sum over B, so one process and a one-rank mesh give the same
+    bits."""
     q = net(batch.obs)
     ops = q_ops(q.shape[-1])
     q_chosen = ops.gather(q, batch.rot, batch.col)
@@ -101,17 +109,21 @@ def td_loss(net: nn.Module, target_net: nn.Module, batch: Batch,
             next_val = ops.max_value(q_next_target)
         disc = cfg.gamma if batch.discount is None else batch.discount
         target = batch.reward + disc * (1.0 - batch.done.float()) * next_val
-    td = (q_chosen - target).detach()
+    td_abs = (q_chosen - target).detach().abs()
+    q_out = q_chosen.detach()
     per_sample = F.huber_loss(q_chosen, target, reduction="none",
                               delta=cfg.huber_delta)
     if batch.weight is not None:
         per_sample = batch.weight * per_sample
-    loss = per_sample.mean()
+    if mask is not None:
+        per_sample, td_abs, q_out = per_sample * mask, td_abs * mask, q_out * mask
+    n = per_sample.shape[0]
+    loss = per_sample.sum() / n
     aux = {
         "loss": loss.detach(),
-        "q_mean": q_chosen.detach().mean(),
-        "td_abs": td.abs().mean(),
-        "td_abs_per_sample": td.abs(),
+        "q_mean": q_out.sum() / n,
+        "td_abs": td_abs.sum() / n,
+        "td_abs_per_sample": td_abs,
     }
     return loss, aux
 
@@ -231,10 +243,30 @@ def polyak(target_net: nn.Module, net: nn.Module, tau: float) -> None:
         t.mul_(1.0 - tau).add_(p * tau)
 
 
+def _all_reduce_update(mesh, params: list, aux: dict) -> None:
+    """One all-reduce (sum) over the ranks of every gradient and the loss
+    terms, in one flat float32 buffer: afterwards each rank holds the
+    gradient of the whole batch's loss, and ``aux`` the whole batch's."""
+    from ..parallel.mesh import all_reduce
+
+    keys = ("loss", "q_mean", "td_abs", "td_abs_per_sample")
+    parts = [p.grad.reshape(-1) for p in params] + [aux[k].reshape(-1) for k in keys]
+    flat = all_reduce(mesh, torch.cat(parts))
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+        at += p.numel()
+    for k in keys:
+        n = aux[k].numel()
+        aux[k] = flat[at:at + n].view_as(aux[k])
+        at += n
+
+
 def learner_update(net: nn.Module, target_net: nn.Module, opt: AmsgradW,
                    rpl: ReplayBuffer, cfg: DQNConfig, *,
                    step_gap: int = 1, beta: Optional[float] = None,
                    j: Optional[torch.Tensor] = None,
+                   idx0: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    demo: Optional[ReplayBuffer] = None, demo_n: int = 0,
                    demo_j: Optional[torch.Tensor] = None,
@@ -245,8 +277,9 @@ def learner_update(net: nn.Module, target_net: nn.Module, opt: AmsgradW,
 
     The sample follows ``cfg`` (1-step or n-step, uniform or prioritized);
     ``step_gap`` is the ring stride between consecutive transitions of one
-    env (num_envs). ``j`` gives a uniform draw's offsets; without it, and
-    always under PER, the draw comes from ``generator``.
+    env (num_envs). ``j`` gives a uniform draw's offsets and ``idx0`` any
+    draw's base slots (as :meth:`ReplayBuffer.sample_ext` takes them);
+    without them the draw comes from ``generator``.
 
     With ``demo`` and ``demo_n > 0``, ``demo_n`` of the ``cfg.batch_size``
     rows are a uniform 1-step sample of the demonstration buffer (offsets
@@ -255,28 +288,45 @@ def learner_update(net: nn.Module, target_net: nn.Module, opt: AmsgradW,
     ``mean(max_a [Q(s,a) + margin [a != a_E]] - Q(s, a_E))`` times
     ``demo_margin_weight``, from one more forward of the demo observations.
 
-    Returns the loss terms as device tensors (no host sync); ``loss`` is
-    the TD loss alone."""
+    On a mesh (the ring's, ``rpl.mesh``) every rank draws the same global
+    batch and computes every row, but counts only the rows it owns; the
+    demonstration rows and the margin term (the demo buffer is the same on
+    every rank) count on rank 0. One all-reduce sums the gradients, so each
+    rank steps with the gradient of the whole batch's mean loss, as JAX's
+    GSPMD learner does, and the weights stay equal on every rank.
+
+    Returns the loss terms as device tensors (no host sync), each the
+    whole batch's; ``loss`` is the TD loss alone."""
+    mesh = rpl.mesh
     demo_on = demo is not None and demo_n > 0
     n_env = cfg.batch_size - demo_n if demo_on else cfg.batch_size
     batch, idx0 = rpl.sample_ext(
         n_env, gamma=cfg.gamma, n_step=cfg.n_step, step_gap=step_gap,
         prioritized=cfg.prioritized, alpha=cfg.per_alpha,
-        beta=cfg.per_beta if beta is None else beta, j=j,
+        beta=cfg.per_beta if beta is None else beta, j=j, idx0=idx0,
         generator=generator)
+    owned = rpl.owned(idx0)
+    mask = None if owned is None else owned.float()
+    root = mesh is None or mesh.is_root
     if demo_on:
         demo_batch = demo.sample(demo_n, j=demo_j, generator=generator)
         batch = cat_batches(batch, demo_batch, cfg.gamma)
+        if mask is not None:
+            mask = torch.cat([mask, torch.full((demo_n,), float(root),
+                                               device=mask.device)])
     opt.zero_grad()
-    loss, aux = td_loss(net, target_net, batch, cfg)
+    loss, aux = td_loss(net, target_net, batch, cfg, mask)
     if demo_on and demo_margin > 0.0:
         q_d = net(demo_batch.obs)
         ops = q_ops(q_d.shape[-1])
         j_e = (ops.margin_max(q_d, demo_batch.rot, demo_batch.col, demo_margin)
                - ops.gather(q_d, demo_batch.rot, demo_batch.col)).mean()
         aux["demo_margin_loss"] = j_e.detach()
-        loss = loss + demo_margin_weight * j_e
+        if root:
+            loss = loss + demo_margin_weight * j_e
     loss.backward()
+    if mesh is not None:
+        _all_reduce_update(mesh, opt.params, aux)
     opt.step()
     polyak(target_net, net, cfg.tau)
     if cfg.prioritized:

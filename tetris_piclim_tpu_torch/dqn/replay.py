@@ -16,6 +16,19 @@ updated in place (the JAX version returns a new pytree).
 Prioritized replay (PER): every slot keeps its raw priority ``|td| + eps``
 and a fresh write takes the running maximum ``max_prio``, a device tensor,
 so neither costs a sync.
+
+Under a data-parallel mesh (``parallel/mesh.py``) of W ranks the ring is
+still one global ring of ``capacity`` slots, as JAX's sharded ring is, but
+each rank stores only the transitions of its own N/W envs (N = num_envs):
+global slot ``g = t N + e`` (ring row t, env e) lives on rank ``e // (N/W)``
+at local slot ``t N/W + e mod N/W`` (:meth:`ReplayBuffer.global_to_local`).
+Each rank writes its envs' block contiguously, so writes need no
+communication, and an n-step chain ``g, g + N, ...`` stays on one rank.
+``pos`` and ``size`` count global slots. Every rank draws the same global
+indices; each reads the rows at their local slots (the rows another rank
+owns read as some valid row of its own, which the learner masks out).
+Under PER the priorities are gathered from every rank before a draw, so
+the draw and its weights are the one-process ones.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.bitboard import PackedState, obs_from_fields, packed_fields
+from ..utils.device import resolve_device
 
 _FIELDS = {  # name: (dtype, trailing shape)
     "cols": (torch.int32, (10,)),
@@ -76,37 +90,99 @@ def cat_batches(a: Batch, b: Batch, gamma: float) -> Batch:
 
 
 class ReplayBuffer:
-    """Ring of ``capacity`` packed transitions on ``device``."""
+    """Ring of ``capacity`` packed transitions on ``device``; under a
+    ``mesh`` this rank's ``capacity / W`` of them, for a trainer of
+    ``num_envs`` envs in all (see the module docstring)."""
 
-    def __init__(self, capacity: int, device="cpu"):
+    def __init__(self, capacity: int, device="cuda", mesh=None,
+                 num_envs: Optional[int] = None):
         self.capacity = capacity
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.size
+        self.rank = 0 if mesh is None else mesh.rank
+        self.num_envs = num_envs
+        if mesh is not None:
+            if num_envs is None or num_envs % self.world or capacity % num_envs:
+                raise ValueError(
+                    f"a ring on a mesh of {self.world} needs num_envs ({num_envs}) "
+                    f"divisible by the mesh size and replay capacity "
+                    f"({capacity}) a multiple of num_envs")
+            device = mesh.device
+        self.device = resolve_device(device)
+        local = capacity // self.world
         self.buf = {
-            name: torch.zeros((capacity, *shape), dtype=dtype, device=self.device)
+            name: torch.zeros((local, *shape), dtype=dtype, device=self.device)
             for name, (dtype, shape) in _FIELDS.items()
         }
-        self.priority = torch.zeros((capacity,), dtype=torch.float32,
+        self.priority = torch.zeros((local,), dtype=torch.float32,
                                     device=self.device)
         self.max_prio = torch.ones((), dtype=torch.float32, device=self.device)
         self.pos = 0
         self.size = 0
 
+    def global_to_local(self, g):
+        """``(owner rank, local slot)`` of global slot(s) ``g`` (a tensor or
+        an int)."""
+        if self.world == 1:
+            return g * 0, g
+        n_env = self.num_envs
+        n_loc = n_env // self.world
+        e = g % n_env
+        return e // n_loc, (g // n_env) * n_loc + e % n_loc
+
+    def owned(self, g: torch.Tensor) -> Optional[torch.Tensor]:
+        """bool mask of the global slots ``g`` this rank stores; None on
+        one process (all of them)."""
+        if self.world == 1:
+            return None
+        return self.global_to_local(g)[0] == self.rank
+
+    def _local(self, g):
+        return self.global_to_local(g)[1]
+
+    def _to_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's local ``x`` [capacity/W, ...] gathered in the global
+        slot order [capacity, ...] (a collective under a mesh)."""
+        if self.world == 1:
+            return x
+        from ..parallel.mesh import all_gather
+
+        n_loc = self.num_envs // self.world
+        rows = all_gather(self.mesh, x).view(
+            self.world, self.capacity // self.num_envs, n_loc, *x.shape[1:])
+        return rows.transpose(0, 1).reshape(self.capacity, *x.shape[1:])
+
+    def _from_global(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows [capacity/W, ...] of a global-order ``x``."""
+        if self.world == 1:
+            return x
+        n_loc = self.num_envs // self.world
+        rows = x.reshape(self.capacity // self.num_envs, self.world, n_loc,
+                         *x.shape[1:])
+        return rows[:, self.rank].reshape(-1, *x.shape[1:])
+
     def add_fields(self, cols, cur, nxt, ll, ml, rot, col, reward, done,
                    n_cols, n_cur, n_nxt, n_ll, n_ml, n_st) -> None:
-        """Contiguous write of N transitions at the ring head."""
+        """Contiguous write of this rank's N/W transitions at the ring head
+        (all N on one process)."""
         n = rot.shape[0]
-        if self.capacity % n:
+        step = n * self.world
+        if self.capacity % step:
             raise ValueError(
                 f"replay capacity ({self.capacity}) must be a multiple of the "
-                f"per-step batch ({n}) for wrap-free contiguous writes"
+                f"per-step batch ({step}) for wrap-free contiguous writes"
             )
+        if self.mesh is not None and step != self.num_envs:
+            raise ValueError(f"a step writes {n} transitions per rank; the "
+                             f"ring expects {self.num_envs // self.world}")
         vals = (cols, cur, nxt, ll, ml, rot, col, reward, done,
                 n_cols, n_cur, n_nxt, n_ll, n_ml, n_st)
+        at = self.pos // self.world
         for buf, val in zip(self.buf.values(), vals):
-            buf[self.pos:self.pos + n].copy_(val)
-        self.priority[self.pos:self.pos + n].copy_(self.max_prio.expand(n))
-        self.pos = (self.pos + n) % self.capacity
-        self.size = min(self.size + n, self.capacity)
+            buf[at:at + n].copy_(val)
+        self.priority[at:at + n].copy_(self.max_prio.expand(n))
+        self.pos = (self.pos + step) % self.capacity
+        self.size = min(self.size + step, self.capacity)
 
     def add(self, state_before: PackedState, rot, col, reward,
             state_after: PackedState, done) -> None:
@@ -142,7 +218,10 @@ class ReplayBuffer:
         outside the valid window masked (the mask comes from the host ints
         ``pos`` and ``size``), and the batch carries max-normalized
         importance weights (Schaul et al. 2016). Either draw may be given
-        (``j`` or ``idx0``) instead of drawn from ``generator``.
+        (``j`` or ``idx0``) instead of drawn from ``generator``. Indices
+        are global slots; under a mesh every rank draws the same ones from
+        the priorities of every rank, and reads the rows at their local
+        slots (:meth:`owned` says which rows are its own).
 
         The chain ``i, i + g, ..., i + (n-1) g`` is cut at its first
         ``done`` (the auto-reset successor starts a new episode): the
@@ -159,7 +238,7 @@ class ReplayBuffer:
             logical = torch.remainder(
                 torch.arange(cap, device=dev) - oldest, cap)
             ok = logical < valid
-            logp = alpha * torch.log(self.priority.clamp(min=1e-12))
+            logp = alpha * torch.log(self._to_global(self.priority).clamp(min=1e-12))
             logits = torch.where(ok, logp, float("-inf"))
             if idx0 is None:
                 probs = torch.where(ok, torch.exp(logp), 0.0)
@@ -179,13 +258,15 @@ class ReplayBuffer:
             idx0 = idx0.to(dev).long()
 
         b = self.buf
+        loc0 = self._local(idx0)
         if n_step == 1:
-            idx_last, reward, done, discount = (
-                idx0, b["reward"][idx0], b["done"][idx0], None)
+            loc_last, reward, done, discount = (
+                loc0, b["reward"][loc0], b["done"][loc0], None)
         else:
             ks = torch.arange(n_step, device=dev)
-            idx = torch.remainder(idx0[:, None] + ks[None, :] * step_gap, cap)
-            rew, dn = b["reward"][idx], b["done"][idx]
+            loc = self._local(torch.remainder(
+                idx0[:, None] + ks[None, :] * step_gap, cap))
+            rew, dn = b["reward"][loc], b["done"][loc]
             # gamma^k in float32, made on the host: the same table on every
             # device, and the return summed in chain order
             powers = torch.as_tensor(
@@ -198,18 +279,18 @@ class ReplayBuffer:
                 live = live & ~dn[:, k]
             k_star = torch.where(dn, ks[None, :], n_step).min(dim=1).values
             k_star = k_star.clamp(max=n_step - 1)   # no done: the chain's end
-            idx_last = idx.gather(1, k_star[:, None])[:, 0]
+            loc_last = loc.gather(1, k_star[:, None])[:, 0]
             done = dn.gather(1, k_star[:, None])[:, 0]
             discount = powers[k_star + 1]
-        obs = obs_from_fields(b["cols"][idx0], b["cur"][idx0], b["nxt"][idx0],
-                              b["lines_left"][idx0], b["moves_left"][idx0],
-                              torch.zeros_like(b["cur"][idx0]))
+        obs = obs_from_fields(b["cols"][loc0], b["cur"][loc0], b["nxt"][loc0],
+                              b["lines_left"][loc0], b["moves_left"][loc0],
+                              torch.zeros_like(b["cur"][loc0]))
         next_obs = obs_from_fields(
-            b["n_cols"][idx_last], b["n_cur"][idx_last], b["n_nxt"][idx_last],
-            b["n_lines_left"][idx_last], b["n_moves_left"][idx_last],
-            b["n_status"][idx_last])
-        batch = Batch(obs=obs, rot=b["rot"][idx0].long(),
-                      col=b["col"][idx0].long(), reward=reward,
+            b["n_cols"][loc_last], b["n_cur"][loc_last], b["n_nxt"][loc_last],
+            b["n_lines_left"][loc_last], b["n_moves_left"][loc_last],
+            b["n_status"][loc_last])
+        batch = Batch(obs=obs, rot=b["rot"][loc0].long(),
+                      col=b["col"][loc0].long(), reward=reward,
                       next_obs=next_obs, done=done, discount=discount,
                       weight=weight)
         return batch, idx0
@@ -220,29 +301,50 @@ class ReplayBuffer:
         ``max_prio``. Where a slot was sampled more than once the last
         occurrence wins: every occurrence writes the value of the last one,
         so the result does not depend on the order of the scatter (CUDA's
-        ``index_put_`` keeps an unspecified one of the duplicates)."""
+        ``index_put_`` keeps an unspecified one of the duplicates).
+
+        Under a mesh ``idx`` and ``td_abs`` are the whole batch's, the same
+        on every rank (the learner's all-reduce gives each rank every
+        row's ``|td|``), so ``max_prio`` needs no collective of its own.
+        A rank writes only the slots it owns; a row of another rank that
+        maps to the same local slot writes the value that slot gets."""
         new_p = td_abs.float() + eps
-        same = idx[:, None] == idx[None, :]
+        loc = self._local(idx)
+        same = loc[:, None] == loc[None, :]
+        owned = self.owned(idx)
+        if owned is not None:
+            same = same & owned[None, :]
         pos = torch.arange(idx.shape[0], device=idx.device)
         last = torch.where(same, pos[None, :], -1).max(dim=1).values
-        self.priority[idx] = new_p[last]
+        if owned is None:
+            self.priority[loc] = new_p[last]
+        else:
+            self.priority[loc] = torch.where(
+                last >= 0, new_p[last.clamp(min=0)], self.priority[loc])
         torch.maximum(self.max_prio, new_p.max(), out=self.max_prio)
 
     def state_dict(self) -> dict:
-        return {"buf": self.buf, "pos": self.pos, "size": self.size,
-                "priority": self.priority, "max_prio": self.max_prio}
+        """The ring in the global slot order (gathered from every rank under
+        a mesh, a collective), so a checkpoint loads on any mesh size."""
+        return {"buf": {k: self._to_global(v) for k, v in self.buf.items()},
+                "pos": self.pos, "size": self.size,
+                "priority": self._to_global(self.priority),
+                "max_prio": self.max_prio}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Load a global-order ring (:meth:`state_dict`); under a mesh this
+        rank keeps its own slots."""
         for name, buf in self.buf.items():
-            buf.copy_(sd["buf"][name])
+            buf.copy_(self._from_global(sd["buf"][name]))
         self.pos, self.size = int(sd["pos"]), int(sd["size"])
         if "priority" in sd:
-            self.priority.copy_(sd["priority"])
+            self.priority.copy_(self._from_global(sd["priority"]))
             self.max_prio.copy_(sd["max_prio"])
         else:
             # a buffer saved before priorities were kept: every written slot
             # (a ring that has not wrapped is written from slot 0) at the
             # initial max priority, as the JAX buffer writes them
-            self.priority.zero_()
-            self.priority[:self.size] = 1.0
+            prio = torch.zeros((self.capacity,), dtype=torch.float32)
+            prio[:self.size] = 1.0
+            self.priority.copy_(self._from_global(prio))
             self.max_prio.fill_(1.0)

@@ -36,7 +36,16 @@ bank refresh and once per demo refresh. Random draws come from a generator
 on the device; scalar draws the host needs (window offsets, kernel seeds)
 from a CPU generator, so they cost no device sync.
 
-Not ported yet (see ROADMAP.md): multi-device meshes.
+``DQNTrainer(cfg, mesh=make_mesh())`` trains data-parallel over the ranks
+of a ``torch.distributed`` group (``parallel/mesh.py``), with JAX's mesh
+layout: each rank steps ``num_envs / W`` envs and keeps their transitions,
+and weights, bank and generators are the same on every rank. Every rank
+draws the global random tensors and keeps its slice, so the per-step
+chunk computes the one-process chunk (the learner's gradient is
+all-reduced, ``dqn/agent.py``). The fused path runs the actor kernel on
+each rank's envs with seed ``+ rank * 7919``, as JAX's ``shard_map`` does.
+A chunk's counts are summed over the ranks once, at its end. Bank and demo
+refreshes run on rank 0 and are broadcast; evaluation runs replicated.
 """
 
 from __future__ import annotations
@@ -54,9 +63,13 @@ from .. import engine
 from ..engine import RUNNING
 from ..gen import device_forward
 from ..gen.bank import ConfigBank
-from ..models.qnet import QNetwork
+from ..models.qnet import NUM_COL, NUM_ROT, QNetwork
 from ..ops import bitboard
 from ..ops.actor import actor_rollout_fused
+from ..parallel.mesh import (
+    Mesh, all_reduce, batch_sharding, broadcast, replicate, shard_bank,
+    shard_train_state,
+)
 from ..utils.checkpoint import restore_params, restore_train_state, save_train_state
 from ..utils.config import TrainConfig
 from ..utils.device import resolve_device
@@ -75,6 +88,7 @@ class TrainState:
     host_gen: torch.Generator   # CPU draws the host needs as ints
     global_step: int = 0        # env steps taken (per-env lockstep)
     updates_done: int = 0
+    mesh: Optional[Mesh] = None  # data-parallel layout (shard_train_state)
 
 
 class ChunkMetrics(NamedTuple):
@@ -158,9 +172,13 @@ _BACKENDS = {"bitboard": bitboard, "array": engine}
 class DQNTrainer:
     def __init__(self, cfg: TrainConfig, bank: Optional[ConfigBank] = None,
                  net: Optional[nn.Module] = None, device="cuda",
-                 backend: str = "bitboard"):
+                 backend: str = "bitboard", mesh: Optional[Mesh] = None):
+        """``mesh``: train data-parallel on it (every rank of the group
+        constructs the trainer with the same arguments); the device is then
+        the mesh's."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if backend not in _BACKENDS:
             raise ValueError(f"backend {backend!r}: want one of {list(_BACKENDS)}")
         self.backend = _BACKENDS[backend]
@@ -185,6 +203,10 @@ class DQNTrainer:
             if self.backend is not bitboard:
                 raise ValueError(
                     "demo-augmented training requires the bitboard backend")
+        if mesh is not None and cfg.actor_fusion > 0 and cfg.num_envs % mesh.size:
+            raise ValueError(
+                f"num_envs ({cfg.num_envs}) must be divisible by the mesh "
+                f"size ({mesh.size}) for actor_fusion")
         if bank is None:
             bank = ConfigBank(cfg.env.L, cfg.env.M, capacity=cfg.bank_capacity,
                               seed=cfg.seed, device=self.device).fill(
@@ -213,6 +235,11 @@ class DQNTrainer:
             self._demo = ReplayBuffer(cfg.demo_capacity, self.device)
             self._demo_n = max(1, int(round(cfg.dqn.batch_size * cfg.demo_ratio)))
         self._clock = _Clock(self.device)
+        self._take = lambda x: x  # noqa: E731  this rank's slice of [num_envs]
+        if mesh is not None:
+            shard_bank(mesh, bank)
+            shard_train_state(mesh, self.state)
+            self._take = batch_sharding(mesh)
 
     # -- chunks -----------------------------------------------------------------
 
@@ -261,12 +288,20 @@ class DQNTrainer:
         boards, pieces = self._bank_rows(self.bank)
         m = self._new_metrics()
         n_upd = max(1, self.cfg.updates_per_step)
+        n, dev, take = self.cfg.num_envs, self.device, self._take
         for _ in range(n_steps):
             obs = be.observe(ts.env)
             eps = agent_lib.eps_schedule(ts.global_step, dqn)
-            rot, col = agent_lib.select_actions(ts.net, obs, eps, generator=ts.gen)
-            idx = torch.randint(0, boards.shape[0], (self.cfg.num_envs,),
-                                generator=ts.gen, device=self.device)
+            # the draws of all num_envs envs, in select_actions' order; a
+            # rank on a mesh keeps its slice
+            explore_u = torch.rand((n,), generator=ts.gen, device=dev)
+            r_rot = torch.randint(0, NUM_ROT, (n,), generator=ts.gen, device=dev)
+            r_col = torch.randint(0, NUM_COL, (n,), generator=ts.gen, device=dev)
+            rot, col = agent_lib.select_actions(
+                ts.net, obs, eps, explore_u=take(explore_u), r_rot=take(r_rot),
+                r_col=take(r_col))
+            idx = take(torch.randint(0, boards.shape[0], (n,), generator=ts.gen,
+                                     device=dev))
             nxt, res = be.step_autoreset_batch(ts.env, rot, col, boards, pieces, idx)
             reward = agent_lib.env_reward(self.cfg.env, res.lines_delta, res.done, res.won)
             if be is bitboard:
@@ -281,7 +316,7 @@ class DQNTrainer:
             m["wins"] += res.won.sum()
             m["lines"] += res.lines_delta.sum()
             m["reward"] += reward.sum()
-        return ChunkMetrics(**m)
+        return self._metrics(m)
 
     def _chunk_fused(self, n_steps: int) -> ChunkMetrics:
         ts, dqn = self.state, self.cfg.dqn
@@ -293,12 +328,13 @@ class DQNTrainer:
         n_upd = max(1, self.cfg.updates_per_step) * K
         B = cols.shape[0]
         kb = min(256, B)
+        rank = 0 if self.mesh is None else self.mesh.rank
         for _ in range(n_steps // K):
             off = int(torch.randint(0, B - kb + 1, (), generator=ts.host_gen))
             seed = int(torch.randint(0, 2**31 - 1, (), generator=ts.host_gen))
             ts.env, trans, episodes, wins = actor_rollout_fused(
                 ts.env, ts.net, cols[off:off + kb],
-                pieces[off:off + kb], ts.global_step, seed,
+                pieces[off:off + kb], ts.global_step, seed + rank * 7919,
                 eps_start=dqn.eps_start, eps_end=dqn.eps_end,
                 eps_decay=dqn.eps_decay, n_steps=K)
             reward = agent_lib.env_reward(self.cfg.env, trans.lines_delta, trans.done, trans.won)
@@ -315,6 +351,17 @@ class DQNTrainer:
             m["wins"] += wins
             m["lines"] += trans.lines_delta.sum()
             m["reward"] += reward.sum()
+        return self._metrics(m)
+
+    def _metrics(self, m: dict) -> ChunkMetrics:
+        """The chunk's metrics; on a mesh the counts (episodes, wins, lines,
+        reward) are summed over the ranks here, in one float64 all-reduce.
+        The loss terms are already the whole batch's."""
+        if self.mesh is not None:
+            keys = ("episodes", "wins", "lines", "reward")
+            tot = all_reduce(self.mesh, torch.stack([m[k].double() for k in keys]))
+            for k, v in zip(keys, tot):
+                m[k] = v.to(m[k].dtype)
         return ChunkMetrics(**m)
 
     def run_chunk(self, n_steps: int) -> ChunkMetrics:
@@ -375,6 +422,13 @@ class DQNTrainer:
         done = torch.ones((K,), dtype=torch.bool, device=self.device)
         self._demo.add_fields(*rows[:8], done, *rows[8:])
 
+    def _share_demo(self) -> None:
+        """Rank 0's demonstration buffer to every rank."""
+        d = self._demo
+        replicate(self.mesh, list(d.buf.values()))
+        pos_size = torch.tensor([d.pos, d.size], device=self.device)
+        d.pos, d.size = (int(v) for v in broadcast(self.mesh, pos_size).tolist())
+
     def _refresh_demo(self, seed: int, initial_height_max: int = 4,
                       beam_width: int = 8) -> None:
         """Generate and prove ``demo_rows`` fresh forward-family candidates
@@ -422,8 +476,20 @@ class DQNTrainer:
 
         Seeds come from ``np.random.default_rng(cfg.seed + 0xBA4E)`` in the
         JAX trainer's order within a chunk: two for the probes, one for the
-        bank refresh, one for the demo refresh."""
+        bank refresh, one for the demo refresh.
+
+        On a mesh every rank calls this with the same arguments. A device
+        bank or demo refresh runs on rank 0 and is broadcast; the probes
+        run on every rank. ``refresh_bank`` raises on a mesh of more than
+        one rank: each rank's producers would make its bank differ."""
         cfg = self.cfg
+        mesh = self.mesh
+        if refresh_bank and mesh is not None and mesh.size > 1:
+            raise ValueError(
+                "refresh_bank is not supported on a mesh of more than one "
+                "rank: the host producers of each rank would make the ranks' "
+                "banks differ; use the device refresh (device_refresh_every)")
+        root = mesh is None or mesh.is_root
         total = total_steps if total_steps is not None else cfg.total_steps
         chunk = max(1, min(cfg.log_every, total))
         done_steps, since_ckpt, chunk_i = 0, 0, 0
@@ -440,6 +506,9 @@ class DQNTrainer:
             probe_f = ConfigBank(L, M, capacity=512, seed=cfg.seed + 7002,
                                  device=dev).fill_device(
                 forward_fraction=1.0, beam_width=device_beam_width)
+            if mesh is not None:
+                shard_bank(mesh, probe_c)
+                shard_bank(mesh, probe_f)
         if refresh_bank:
             self.bank.start_refresh()
         try:
@@ -454,14 +523,22 @@ class DQNTrainer:
                     share = rule(share, wc, wf)
                     probe = {"probe_carve": wc, "probe_forward": wf}
                 if device_refresh_every and chunk_i and chunk_i % device_refresh_every == 0:
-                    self.bank.refresh_device(
-                        seed=draw(), forward_fraction=share,
-                        beam_width=device_beam_width,
-                        initial_height_max=height_at(device_height, done_steps, total))
+                    seed = draw()
+                    if root:
+                        self.bank.refresh_device(
+                            seed=seed, forward_fraction=share,
+                            beam_width=device_beam_width,
+                            initial_height_max=height_at(device_height, done_steps, total))
+                    if mesh is not None:
+                        shard_bank(mesh, self.bank)
                 if self._demo is not None and chunk_i % cfg.demo_every == 0:
                     # runs at chunk 0 too, so the buffer is full when learning starts
-                    self._refresh_demo(draw(), height_at(device_height, done_steps, total),
-                                       device_beam_width)
+                    seed = draw()
+                    if root:
+                        self._refresh_demo(seed, height_at(device_height, done_steps, total),
+                                           device_beam_width)
+                    if mesh is not None:
+                        self._share_demo()
                 chunk_i += 1
                 n = min(chunk, total - done_steps)
                 if cfg.actor_fusion > 0:
@@ -526,7 +603,8 @@ class DQNTrainer:
 
     def save_checkpoint(self, path: Optional[str] = None) -> str:
         """Save the full TrainState under ``path`` or
-        ``cfg.checkpoint_dir/step_<global_step>``."""
+        ``cfg.checkpoint_dir/step_<global_step>`` (on a mesh: every rank
+        calls this, rank 0 writes the global state)."""
         if path is None:
             if not self.cfg.checkpoint_dir:
                 raise ValueError("no path given and cfg.checkpoint_dir unset")
