@@ -59,7 +59,15 @@ drives the port's two paths through the entry points a user calls:
     1024-row device bank, 4 updates per step) with its chunk cut from 512
     steps to 32: the card's BF16 peak is known, and the chunk, learner and
     actor MFU each lie in (0, 1]; then a tiny ``cli train --profile-dir``
-    whose ``torch.profiler`` trace parses and holds CUDA kernel events.
+    whose ``torch.profiler`` trace parses and holds CUDA kernel events;
+16. data-parallel training over ``torch.distributed``: a one-rank NCCL
+    mesh word for word against no mesh, and two gloo ranks sharing the card
+    against one process;
+17. (a) ``refresh_bank`` on a two-rank gloo mesh sharing the card, on
+    ``cli train``'s default-bank recipe (rank 0 fills the bank and runs
+    the producers; every chunk reads rank 0's rows, broadcast and timed),
+    (b) ``make_mesh(2)`` of three gloo ranks against one process, (c)
+    ``entry()`` (the flagship net on 256 envs) on the card against the CPU.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -1380,16 +1388,21 @@ def two_rank_configs() -> tuple:
     return per_step, train_config(8, 1, 8)
 
 
-def worker_two_ranks_gloo(out: Path) -> dict:
+def worker_two_ranks_gloo(out: Path, n_mesh=None) -> dict:
     """(b), in each of two children on the one card: the per-step chunk and
     a fused phase on a 2-rank gloo mesh; rank 0 writes what the parent
-    checks against one process."""
+    checks against one process. With ``n_mesh=2`` (phase 17 (b), three
+    children) the mesh is ``make_mesh(2)``, and the third rank gets none
+    and only reports."""
     from tetris_piclim_tpu_torch.parallel import init_distributed, make_mesh
     from tetris_piclim_tpu_torch.parallel.mesh import all_gather
 
     deterministic_card()
     info = init_distributed(device=DEV)
-    mesh = make_mesh(device=DEV)
+    mesh = make_mesh(n_mesh, device=DEV)
+    if mesh is None:
+        return {"backend": info["backend"], "world": None,
+                "rank": torch.distributed.get_rank()}
     per_step, fused = two_rank_configs()
     bank = config_bank(per_step)
     dumps = {}
@@ -1504,8 +1517,194 @@ def check_two_ranks(got: dict) -> None:
           f"fused: episodes {g['episodes']} and wins {g['wins']} summed over the ranks")
 
 
+# -- phase 17: the mesh's host refresh, a sub-mesh, entry() ----------------------
+
+MESH_REFRESH_CHUNKS, MESH_REFRESH_STEPS = 4, 128
+PRODUCER_WAIT_S = 120.0   # the producers' first rows take 7-9 s on the H100's host
+
+
+def mesh_refresh_config() -> TrainConfig:
+    """``cli train``'s default-bank recipe as phase 10 runs it: L=2/M=20,
+    4096 envs, a 1024-row host bank, ``actor_fusion=8``."""
+    return dataclasses.replace(
+        train_config(8, MESH_REFRESH_CHUNKS, MESH_REFRESH_STEPS), bank_capacity=1024)
+
+
+def worker_mesh_refresh(out: Path) -> dict:
+    """(a), in each of two children sharing the card over gloo: the trainer
+    with no bank given (rank 0 fills it) and ``refresh_bank=True``. Each
+    rank writes the rows every chunk read and times each chunk's bank
+    broadcast (synchronised); rank 0 waits before the last chunk until the
+    producers' first rows have landed."""
+    from tetris_piclim_tpu_torch.dqn import train as train_mod
+    from tetris_piclim_tpu_torch.parallel import init_distributed, make_mesh
+    from tetris_piclim_tpu_torch.parallel.mesh import STAGED
+
+    info = init_distributed(device=DEV)
+    mesh = make_mesh(device=DEV)
+    cfg = mesh_refresh_config()
+    t0 = time.perf_counter()
+    trainer = DQNTrainer(cfg, device=DEV, mesh=mesh)
+    sync()
+    init_s = time.perf_counter() - t0
+    shard, bcast_ms = train_mod.shard_bank, []
+
+    def timed_shard(m, bank):
+        sync()
+        t = time.perf_counter()
+        shard(m, bank)
+        sync()
+        bcast_ms.append((time.perf_counter() - t) * 1e3)
+        return bank
+
+    train_mod.shard_bank = timed_shard
+    run, rows_read, waited = trainer.run_chunk, [], []
+
+    def recorded(n, rows=None):
+        rows_read.append(tuple(t.to("cpu", copy=True) for t in rows))
+        m = run(n, rows)
+        if mesh.is_root and len(rows_read) == MESH_REFRESH_CHUNKS - 1:
+            t = time.perf_counter()
+            while (trainer.bank.refresh_writes == 0
+                   and time.perf_counter() - t < PRODUCER_WAIT_S):
+                time.sleep(0.05)
+            waited.append(time.perf_counter() - t)
+        return m
+
+    trainer.run_chunk = recorded
+    staged0 = STAGED["broadcasts"]
+    _build.reset_launch_counts()
+    hist = trainer.train(log_fn=None, refresh_bank=True)["history"]
+    sync()
+    launches = _build.LAUNCHES["actor"]
+    torch.save(rows_read, out / f"refresh_rank{mesh.rank}.pt")
+    pool = trainer.bank._pool
+    return {"backend": info["backend"], "world": mesh.size, "rank": mesh.rank,
+            "init_s": init_s, "launches": launches, "bcast_ms": bcast_ms,
+            "waited_s": waited, "staged": STAGED["broadcasts"] - staged0,
+            "started_producers": pool is not None,
+            "producers_alive": bool(pool is not None and pool.slots),
+            "children": len(multiprocessing.active_children()),
+            "writes": [r["bank_writes"] for r in hist],
+            "families": [r["bank_families"] for r in hist],
+            "env_steps_per_s": [r["steps_per_s"] for r in hist],
+            "loss_finite": all(np.isfinite(r["loss"]) for r in hist)}
+
+
+def phase_mesh_extras() -> dict:
+    """(a) the host refresh on a two-rank gloo mesh sharing the card, (b) a
+    two-rank sub-mesh of three gloo ranks against one process, (c)
+    ``entry()`` on the card against the CPU."""
+    from tetris_piclim_tpu_torch.parallel.distributed import launch_local
+
+    shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+    MULTIGPU_DIR.mkdir(parents=True)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"   # for the children
+    try:
+        print(f"mesh (a): two gloo ranks on one card, refresh_bank, L=2/M=20, 4096 "
+              f"envs, host bank 1024, actor_fusion 8, {MESH_REFRESH_CHUNKS} chunks "
+              f"of {MESH_REFRESH_STEPS} steps")
+        t0 = time.perf_counter()
+        outs = launch_local(2, [ROOT / "chip_smoke.py", "--multigpu-worker", "refresh2",
+                                MULTIGPU_DIR], timeout=MULTIGPU_TIMEOUT)
+        a = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        check(all(r["backend"] == "gloo" and r["world"] == 2 for r in a),
+              f"two ranks trained on a gloo mesh ({time.perf_counter() - t0:.1f} s; "
+              f"rank 0's init with the host fill {a[0]['init_s']:.2f} s, rank 1's "
+              f"{a[1]['init_s']:.2f} s)")
+        rows = [torch.load(MULTIGPU_DIR / f"refresh_rank{r}.pt") for r in range(2)]
+        check(len(rows[0]) == len(rows[1]) == MESH_REFRESH_CHUNKS
+              and all(torch.equal(x, y) for c0, c1 in zip(*rows) for x, y in zip(c0, c1)),
+              "every chunk read the same bank rows on both ranks, word for word")
+        check(a[0]["writes"][-1] > 0 and a[0]["writes"] == a[1]["writes"]
+              and a[0]["families"] == a[1]["families"],
+              f"the producers wrote {a[0]['writes']} rows by each chunk's end "
+              f"(rank 0 waited {a[0]['waited_s'][0]:.2f} s before the last "
+              f"chunk); both ranks log {a[0]['families'][-1]}")
+        check(not all(torch.equal(x, y) for x, y in zip(rows[0][0], rows[0][-1])),
+              "the last chunk stepped on the producers' rows")
+        check(a[0]["started_producers"] and not a[1]["started_producers"]
+              and not a[0]["producers_alive"] and a[0]["children"] == a[1]["children"] == 0,
+              "rank 0 alone ran producers, and none outlived the call")
+        phases = MESH_REFRESH_CHUNKS * MESH_REFRESH_STEPS // 8
+        check(all(r["launches"] == phases for r in a),
+              f"actor kernel launched {[r['launches'] for r in a]}x = {phases} "
+              "phases on each rank")
+        check(all(r["staged"] == 0 for r in a) and all(r["loss_finite"] for r in a),
+              "no broadcast staged through the card; loss finite")
+        print(f"  bank broadcast ms per chunk (1024 rows, synchronised): rank 0 "
+              f"{a[0]['bcast_ms']}, rank 1 {a[1]['bcast_ms']}; env-steps/s "
+              f"{a[0]['env_steps_per_s']}")
+
+        print("mesh (b): three gloo ranks on one card, make_mesh(2): the two-rank "
+              "trainer (3 per-step steps, one fused phase) against one process")
+        t0 = time.perf_counter()
+        outs = launch_local(3, [ROOT / "chip_smoke.py", "--multigpu-worker", "submesh3",
+                                MULTIGPU_DIR], timeout=MULTIGPU_TIMEOUT)
+        b = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        check([r["world"] for r in b] == [2, 2, None],
+              f"ranks 0-1 got a two-rank mesh, rank 2 none "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check_two_ranks(torch.load(MULTIGPU_DIR / "two_ranks.pt", weights_only=False))
+        ent = phase_entry()
+        return {"refresh": {"bcast_ms": [r["bcast_ms"] for r in a],
+                            "writes": a[0]["writes"], "waited_s": a[0]["waited_s"],
+                            "init_s": [r["init_s"] for r in a],
+                            "env_steps_per_s": a[0]["env_steps_per_s"],
+                            "launches": [r["launches"] for r in a]},
+                "submesh_s": time.perf_counter() - t0, "entry": ent}
+    finally:
+        shutil.rmtree(MULTIGPU_DIR, ignore_errors=True)
+
+
+def phase_entry() -> dict:
+    """``entry()`` on the card against the same steps on the CPU (TF32 is
+    off, as main() sets it): the same weights, the card's draws; Q within
+    1e-4, and actions and env state equal wherever an env explores or its
+    top two Q values differ by more than 1e-4; three chained steps."""
+    from tetris_piclim_tpu_torch import entry
+
+    print("entry(): the flagship net on 256 envs, epsilon 0.05, card against CPU")
+    step, (net, states, explore, rrot, rcol) = entry(DEV)
+    _, (cnet, cstates, *_) = entry(device="cpu")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(net.state_dict().values(),
+                                                      cnet.state_dict().values()))
+          and states_equal(bb.PackedState(*[f.cpu() for f in states]), cstates),
+          "entry() gives the same weights and states on the card and the CPU")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    q_err, compared = 0.0, 0
+    for k in range(3):
+        with torch.no_grad():
+            q = net(bb.observe_batch(states)).cpu()
+            cs = bb.PackedState(*[f.cpu() for f in states])
+            cq = cnet(bb.observe_batch(cs))
+        q_err = max(q_err, float((q - cq).abs().max()))
+        top2 = cq.topk(2, dim=1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > 1e-4) | (explore.cpu() < 0.05)
+        new, lines, done = step(net, states, explore, rrot, rcol)
+        cnew, clines, cdone = step(cnet, cs, explore.cpu(), rrot.cpu(), rcol.cpu())
+        check(all(torch.equal(f.cpu()[sure], g[sure]) for f, g in zip(new, cnew)),
+              f"step {k}: env state equal on {int(sure.sum())} of 256 envs "
+              f"(Q within {q_err:.3g})")
+        if bool(sure.all()):
+            check(int(lines) == int(clines) and int(done) == int(cdone),
+                  f"step {k}: lines {int(lines)} and dones {int(done)} as on the CPU")
+        compared += int(sure.sum())
+        states = new
+        explore = torch.rand((256,), generator=gen, device=DEV)
+        rrot = torch.randint(0, 4, (256,), generator=gen, device=DEV)
+        rcol = torch.randint(0, 10, (256,), generator=gen, device=DEV)
+    check(q_err <= 1e-4, f"Q within {q_err:.3g} <= 1e-4 over three steps")
+    args = (net, states, explore, rrot, rcol)
+    ms = cuda_ms(lambda: step(*args), 20)
+    print(f"  entry forward_step {ms:.4f} ms on the card (256 envs)")
+    return {"q_max_abs_err": q_err, "envs_compared": compared, "step_ms": ms}
+
+
 def multigpu_worker(kind: str, out: str) -> int:
-    res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo}[kind](Path(out))
+    res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo,
+           "refresh2": worker_mesh_refresh,
+           "submesh3": lambda o: worker_two_ranks_gloo(o, n_mesh=2)}[kind](Path(out))
     print(json.dumps(res), flush=True)
     torch.distributed.destroy_process_group()
     return 0
@@ -1576,6 +1775,7 @@ def main() -> int:
     goals = phase_per_env_goals()
     prof = phase_profile_mfu()
     multi = phase_multigpu()
+    extras = phase_mesh_extras()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1625,6 +1825,7 @@ def main() -> int:
         "peak_tflops_bf16": mm["peak_tflops_bf16"], "device_kind": mm["device_kind"],
         "trace_kernel_events": prof["trace_kernel_events"]}}))
     print(json.dumps({"multigpu": multi, "card": smi}))
+    print(json.dumps({"mesh_refresh_submesh_entry": extras, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

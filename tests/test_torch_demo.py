@@ -115,7 +115,7 @@ def test_host_seed_order_matches_jax():
     tr.bank.refresh_device = lambda seed=None, **kw: seen.append(("refresh", seed))
     tr._refresh_demo = lambda seed, *a: seen.append(("demo", seed))
     z = torch.zeros((), dtype=torch.int64)
-    tr.run_chunk = lambda n: ChunkMetrics(z, z, z, z.float(), z.float(), 0, z.float())
+    tr.run_chunk = lambda n, rows=None: ChunkMetrics(z, z, z, z.float(), z.float(), 0, z.float())
     tr.train(log_fn=None, device_refresh_every=refresh_every,
              device_forward_fraction=0.25, adaptive_share=True,
              adapt_every=adapt_every, adapt_episodes=8)

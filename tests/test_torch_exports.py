@@ -1,5 +1,7 @@
-"""The port's public names against the JAX package's ``__init__`` files,
-their lazy loading, and the helpers that came with them
+"""The port's public names against the JAX package's ``__init__`` files and
+against every JAX module that has a counterpart module in the port (each
+public module-level name and each public method of its classes), their
+lazy loading, and the helpers that came with them
 (``generate_board_and_sequence``, ``to_board``, ``step_batch`` /
 ``observe_batch``, ``init_qnet``), each against its JAX counterpart."""
 
@@ -34,6 +36,75 @@ NOT_PORTED = {
     "dqn": {"ReplayState", "replay_init", "replay_add", "replay_sample",
             "replay_sample_ext", "replay_update_priority"},
 }
+
+
+# JAX modules whose counterpart in the port is another module
+MODULE_COUNTERPARTS = {
+    "gen/jax_carver.py": "gen/device_carver.py",    # the device carver in torch
+    "gen/jax_forward.py": "gen/device_forward.py",  # the device forward generator
+    "ops/pallas_rollout.py": "ops/rollout.py",      # csrc/rollout.cu and its wrapper
+    "ops/pallas_actor.py": "ops/actor.py",          # csrc/actor.cu and its wrapper
+    "utils/cache.py": "ops/_build.py",              # XLA's compile cache: the nvcc cache
+}
+# public names of JAX modules that their counterparts do not have, and why
+MODULE_NAMES_NOT_PORTED = {
+    "dqn/replay.py": {
+        # the functional replay API: the port's replay is the class
+        # ReplayBuffer, whose methods stand for these
+        "ReplayState", "replay_init", "replay_add", "replay_add_fields",
+        "replay_sample", "replay_sample_ext", "replay_update_priority"},
+    # an optax transformation: the port's optimizer is the class AmsgradBf16
+    "dqn/agent.py": {"scale_by_amsgrad_bf16"},
+    # XLA's cost model; the port counts FLOPs with FlopCounterMode
+    "utils/mfu.py": {"compiled_flops"},
+}
+JAX_MODULES = sorted(
+    str(p.relative_to(ROOT / "tetris_piclim_tpu"))
+    for p in (ROOT / "tetris_piclim_tpu").rglob("*.py")
+    if p.name not in ("__init__.py", "__main__.py"))
+
+
+def jax_module_names(rel: str) -> dict[str, list[str]]:
+    """The public module-level names a JAX module defines (functions,
+    classes, constants), each class with its public methods (read from the
+    source, not by importing)."""
+    tree = ast.parse((ROOT / "tetris_piclim_tpu" / rel).read_text())
+    names: dict[str, list[str]] = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names[node.name] = []
+        elif isinstance(node, ast.ClassDef):
+            names[node.name] = [
+                n.name for n in node.body
+                if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                and not n.name.startswith("_")]
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                elts = t.elts if isinstance(t, ast.Tuple) else [t]
+                names.update({e.id: [] for e in elts if isinstance(e, ast.Name)})
+    return {k: v for k, v in names.items() if not k.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_jax_module_names_resolve_in_counterpart(rel):
+    """Every public name of a JAX module, and every public method of its
+    classes, resolves in the port's module of the same path; the modules
+    the port replaced by another have that module."""
+    if rel in MODULE_COUNTERPARTS:
+        assert not (ROOT / "tetris_piclim_tpu_torch" / rel).exists(), rel
+        assert (ROOT / "tetris_piclim_tpu_torch" / MODULE_COUNTERPARTS[rel]).exists()
+        return
+    assert (ROOT / "tetris_piclim_tpu_torch" / rel).exists(), rel
+    mod = importlib.import_module(
+        "tetris_piclim_tpu_torch." + rel[:-3].replace("/", "."))
+    skip = MODULE_NAMES_NOT_PORTED.get(rel, set())
+    names = jax_module_names(rel)
+    assert skip <= set(names), skip - set(names)
+    missing = [n for n in names if n not in skip and not hasattr(mod, n)]
+    missing += [f"{n}.{m}" for n, methods in names.items() if n not in skip
+                and hasattr(mod, n) for m in methods if not hasattr(getattr(mod, n), m)]
+    assert not missing, f"{rel}: {missing}"
 
 
 def jax_init_names(sub: str) -> set[str]:
@@ -155,3 +226,45 @@ def test_init_qnet_gives_flax_shapes(action_dim):
                                np.asarray(jnet.apply(jparams, obs)), atol=1e-5)
     with pytest.raises(ValueError):
         tqnet.init_qnet(action_dim=13)
+
+
+def test_piece_ids_and_mask_rtopo_match_jax():
+    from tetris_piclim_tpu import tables as jt
+    from tetris_piclim_tpu_torch import tables as tt
+
+    names = ["PIECE_I", "PIECE_L", "PIECE_J", "PIECE_T", "PIECE_S", "PIECE_Z", "PIECE_O"]
+    assert [getattr(tt, n) for n in names] == [getattr(jt, n) for n in names]
+    assert [tt.PIECE_IDS[n[-1]] for n in names] == [getattr(tt, n) for n in names]
+    rng = np.random.default_rng(5)
+    masks = [m.astype(bool) for shapes in tt.GEN_SHAPES.values() for m in shapes]
+    masks += [rng.random((h, w)) < 0.5 for h, w in rng.integers(1, 5, (64, 2))]
+    masks = [m | (np.arange(m.shape[0])[:, None] == 0) for m in masks]  # a cell per column
+    for m in masks:
+        got = tt.mask_rtopo(m)
+        np.testing.assert_array_equal(got, jt.mask_rtopo(m))
+        assert got.dtype == np.int32
+    for p in range(tt.NUM_PIECES):
+        for r in range(tt.MAX_ROT):
+            m, topo = tt.get_tetromino(p, r)
+            assert tuple(tt.mask_rtopo(m)) == topo
+
+
+@pytest.mark.parametrize("seed,goal", [(3, 1), (11, 2), (42, 1)])
+def test_solver_replay_matches_jax(seed, goal):
+    from tetris_piclim_tpu.gen.forward import ForwardGenerator as JGen
+    from tetris_piclim_tpu.gen.solver import GreedyDFSSolver as JSolver
+    from tetris_piclim_tpu_torch.gen.solver import GreedyDFSSolver
+
+    game = JGen(seed=seed, goal=goal, num_pieces=10, initial_height_max=4)
+    js = JSolver(game.board, game.sequence, goal, max_attempts=1000)
+    ok, stack, _ = js.solve()
+    if not ok:  # a prefix of any placement sequence replays too
+        stack = [(name, 0, 0) for name in game.sequence[:3]]
+    ts = GreedyDFSSolver(game.board, game.sequence, goal, max_attempts=1000)
+    lines = ts.replay(stack)
+    assert lines == js.replay(stack)
+    np.testing.assert_array_equal(ts.board, js.board)
+    assert lines == ts.visualize_moves(stack, print_fn=lambda *_: None)
+    assert ts.replay(stack) == lines  # replay starts from the initial board
+    if ok:
+        assert lines >= goal

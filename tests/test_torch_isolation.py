@@ -89,3 +89,27 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+_TOOL_PROBE = r"""
+import json, sys
+sys.path.insert(0, "tools")
+import learning_check
+learning_check.parse([])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "tetris_piclim_tpu") or m.startswith(("jax.", "tetris_piclim_tpu.")))
+print(json.dumps(bad))
+"""
+
+
+def test_learning_check_imports_no_jax_and_needs_a_card(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _TOOL_PROBE], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    if not torch.cuda.is_available():
+        out = subprocess.run(
+            [sys.executable, "tools/learning_check.py", "--steps", "2",
+             "--out", str(tmp_path)], cwd=ROOT, env=_env(), capture_output=True,
+            text=True, timeout=120)
+        assert out.returncode != 0 and "CUDA" in out.stderr and out.stdout == ""

@@ -8,7 +8,8 @@ This package imports neither jax nor ``tetris_piclim_tpu``.
 
 The top level re-exports the JAX package's names: the array engine
 (``engine.py``, batch first, so ``step_batch`` and ``observe_batch`` are
-aliases of ``step`` and ``observe``), ``tables`` and ``__version__``. The
+aliases of ``step`` and ``observe``), ``tables`` and ``__version__``, and
+``entry`` (``entry.py``, the counterpart of ``__graft_entry__.entry``). The
 exports are lazy (``_lazy.py``): importing the package loads no torch
 until a torch-backed name is read, because spawned producer processes
 import it. What differs from the JAX package's names:
@@ -30,6 +31,7 @@ __version__ = "0.1.0"
 
 __getattr__, __dir__, __all__ = lazy_exports(__name__, {
     ".tables": [],
+    ".entry": ["entry"],
     ".engine": ["EnvState", "StepResult", "OBS_DIM", "RUNNING", "WIN", "LOSS",
                 "make_state", "make_state_batch", "observe", "observe_batch",
                 "step", "step_batch", "step_autoreset_batch"],

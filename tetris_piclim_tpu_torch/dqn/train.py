@@ -67,8 +67,8 @@ from ..models.qnet import NUM_COL, NUM_ROT, QNetwork
 from ..ops import bitboard
 from ..ops.actor import actor_rollout_fused
 from ..parallel.mesh import (
-    Mesh, all_reduce, batch_sharding, broadcast, replicate, shard_bank,
-    shard_train_state,
+    Mesh, all_reduce, batch_sharding, broadcast, replicate, replicate_ints,
+    shard_bank, shard_train_state,
 )
 from ..utils.checkpoint import restore_params, restore_train_state, save_train_state
 from ..utils.config import TrainConfig
@@ -209,15 +209,20 @@ class DQNTrainer:
                 f"size ({mesh.size}) for actor_fusion")
         if bank is None:
             bank = ConfigBank(cfg.env.L, cfg.env.M, capacity=cfg.bank_capacity,
-                              seed=cfg.seed, device=self.device).fill(
-                carve_fraction=cfg.bank_carve_fraction)
+                              seed=cfg.seed, device=self.device)
+            if mesh is None or mesh.is_root:
+                bank.fill(carve_fraction=cfg.bank_carve_fraction)
+            else:  # rank 0's rows arrive through shard_bank below
+                bank.allocate()
         self.bank = bank
+        if mesh is not None:
+            shard_bank(mesh, bank)
         net = net.to(self.device)
         target = copy.deepcopy(net)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         idx = torch.randint(0, bank.capacity, (cfg.num_envs,), generator=gen,
                             device=self.device)
-        boards, pieces = self._bank_rows(bank)
+        boards, pieces = self._bank_rows(bank.rows)
         env = self.backend.make_state_batch(
             boards[idx], pieces[idx], cfg.env.L, cfg.env.M)
         self.state = TrainState(
@@ -237,17 +242,16 @@ class DQNTrainer:
         self._clock = _Clock(self.device)
         self._take = lambda x: x  # noqa: E731  this rank's slice of [num_envs]
         if mesh is not None:
-            shard_bank(mesh, bank)
             shard_train_state(mesh, self.state)
             self._take = batch_sharding(mesh)
 
     # -- chunks -----------------------------------------------------------------
 
-    def _bank_rows(self, bank: ConfigBank):
-        """The bank's (boards, pieces) pair, taken once, with the boards in
-        the backend's layout (packed for bitboard, bool[B, 20, 10] for the
-        array engine)."""
-        cols, pieces = bank.rows
+    def _bank_rows(self, rows: tuple):
+        """A bank's (boards, pieces) pair, with the boards in the backend's
+        layout (packed for bitboard, bool[B, 20, 10] for the array
+        engine)."""
+        cols, pieces = rows
         if self.backend is bitboard:
             return cols, pieces
         return bitboard.unpack_board(cols), pieces
@@ -283,9 +287,9 @@ class DQNTrainer:
                 "loss_sum": z(torch.float32), "loss_count": 0,
                 "q_mean_sum": z(torch.float32)}
 
-    def _chunk_plain(self, n_steps: int) -> ChunkMetrics:
+    def _chunk_plain(self, n_steps: int, rows: Optional[tuple] = None) -> ChunkMetrics:
         ts, dqn, be = self.state, self.cfg.dqn, self.backend
-        boards, pieces = self._bank_rows(self.bank)
+        boards, pieces = self._bank_rows(rows or self.bank.rows)
         m = self._new_metrics()
         n_upd = max(1, self.cfg.updates_per_step)
         n, dev, take = self.cfg.num_envs, self.device, self._take
@@ -318,9 +322,9 @@ class DQNTrainer:
             m["reward"] += reward.sum()
         return self._metrics(m)
 
-    def _chunk_fused(self, n_steps: int) -> ChunkMetrics:
+    def _chunk_fused(self, n_steps: int, rows: Optional[tuple] = None) -> ChunkMetrics:
         ts, dqn = self.state, self.cfg.dqn
-        cols, pieces = self.bank.rows
+        cols, pieces = rows or self.bank.rows
         K = self.cfg.actor_fusion
         if n_steps % K:
             raise ValueError(f"chunk of {n_steps} steps is not whole K={K} phases")
@@ -364,10 +368,12 @@ class DQNTrainer:
                 m[k] = v.to(m[k].dtype)
         return ChunkMetrics(**m)
 
-    def run_chunk(self, n_steps: int) -> ChunkMetrics:
+    def run_chunk(self, n_steps: int, rows: Optional[tuple] = None) -> ChunkMetrics:
+        """``n_steps`` env steps on the bank's (cols, pieces) pair, read once
+        here, or on ``rows``."""
         if self.cfg.actor_fusion > 0:
-            return self._chunk_fused(n_steps)
-        return self._chunk_plain(n_steps)
+            return self._chunk_fused(n_steps, rows)
+        return self._chunk_plain(n_steps, rows)
 
     # -- demonstration buffer --------------------------------------------------
 
@@ -472,7 +478,11 @@ class DQNTrainer:
         (``ConfigBank.start_refresh``: carves, and forward games proven by
         the host DFS solver) before the first chunk and stops them when the
         call ends, however it ends; each row then logs the rows they have
-        written and the bank's family counts.
+        written and the bank's family counts. On a mesh only rank 0 runs
+        them, and every chunk starts with rank 0's bank broadcast
+        (``shard_bank``, under rank 0's bank lock): the chunk reads the
+        rows broadcast, so all ranks step on one generation of rows, as
+        JAX's chunk reads its replicated bank once.
 
         Seeds come from ``np.random.default_rng(cfg.seed + 0xBA4E)`` in the
         JAX trainer's order within a chunk: two for the probes, one for the
@@ -480,15 +490,10 @@ class DQNTrainer:
 
         On a mesh every rank calls this with the same arguments. A device
         bank or demo refresh runs on rank 0 and is broadcast; the probes
-        run on every rank. ``refresh_bank`` raises on a mesh of more than
-        one rank: each rank's producers would make its bank differ."""
+        run on every rank; the producers run on rank 0 alone, and rank 0's
+        refresh counts are logged on every rank."""
         cfg = self.cfg
         mesh = self.mesh
-        if refresh_bank and mesh is not None and mesh.size > 1:
-            raise ValueError(
-                "refresh_bank is not supported on a mesh of more than one "
-                "rank: the host producers of each rank would make the ranks' "
-                "banks differ; use the device refresh (device_refresh_every)")
         root = mesh is None or mesh.is_root
         total = total_steps if total_steps is not None else cfg.total_steps
         chunk = max(1, min(cfg.log_every, total))
@@ -509,7 +514,7 @@ class DQNTrainer:
             if mesh is not None:
                 shard_bank(mesh, probe_c)
                 shard_bank(mesh, probe_f)
-        if refresh_bank:
+        if refresh_bank and root:
             self.bank.start_refresh()
         try:
             t0 = time.perf_counter()
@@ -529,7 +534,7 @@ class DQNTrainer:
                             seed=seed, forward_fraction=share,
                             beam_width=device_beam_width,
                             initial_height_max=height_at(device_height, done_steps, total))
-                    if mesh is not None:
+                    if mesh is not None and not refresh_bank:
                         shard_bank(mesh, self.bank)
                 if self._demo is not None and chunk_i % cfg.demo_every == 0:
                     # runs at chunk 0 too, so the buffer is full when learning starts
@@ -544,7 +549,11 @@ class DQNTrainer:
                 if cfg.actor_fusion > 0:
                     K = cfg.actor_fusion
                     n = -(-n // K) * K  # kernel phases are K steps
-                m = self.run_chunk(n)
+                rows = None
+                if refresh_bank and mesh is not None:
+                    with self.bank._lock:  # no swap between broadcast and read
+                        rows = shard_bank(mesh, self.bank).rows
+                m = self.run_chunk(n, rows)
                 episodes = int(m.episodes)  # waits for the chunk
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -568,8 +577,7 @@ class DQNTrainer:
                     "learner_share": learner_ms / max(dt * 1e3, 1e-9),
                 }
                 if refresh_bank:
-                    row["bank_writes"] = self.bank.refresh_writes
-                    row["bank_families"] = self.bank.family_counts
+                    row["bank_writes"], row["bank_families"] = self._refresh_counts()
                 if device_refresh_every and (adaptive_share or device_height is not None):
                     row["forward_share"] = round(share, 4)
                 if probe is not None:
@@ -595,9 +603,20 @@ class DQNTrainer:
                     self.save_checkpoint()
                     since_ckpt = 0
         finally:
-            if refresh_bank:
+            if refresh_bank and root:
                 self.bank.stop_refresh()
+        if refresh_bank and mesh is not None:
+            shard_bank(mesh, self.bank)  # rows swapped in after the last chunk's read
         return {"history": history}
+
+    def _refresh_counts(self) -> tuple[int, dict]:
+        """The producers' row writes and the bank's family counts, rank 0's
+        on a mesh."""
+        fam = self.bank.family_counts
+        vals = (self.bank.refresh_writes, fam["carve"], fam["forward"])
+        if self.mesh is not None:
+            vals = replicate_ints(self.mesh, vals)
+        return vals[0], {"carve": vals[1], "forward": vals[2]}
 
     # -- checkpoint / resume ---------------------------------------------------------
 
@@ -630,7 +649,7 @@ class DQNTrainer:
         """Greedy win rate over ``n_episodes`` bank configs: each env plays
         one episode (no auto-reset) for M+1 steps, finished envs frozen."""
         cfg, be = self.cfg, self.backend
-        boards, pieces = self._bank_rows(bank if bank is not None else self.bank)
+        boards, pieces = self._bank_rows((bank if bank is not None else self.bank).rows)
         gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1 if seed is None else seed)
         idx = torch.randint(0, boards.shape[0], (n_episodes,), generator=gen,

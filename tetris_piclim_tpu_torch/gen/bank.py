@@ -157,6 +157,17 @@ class ConfigBank:
             self.family[:] = family
         return self
 
+    def allocate(self) -> "ConfigBank":
+        """Rows of zeros of the bank's shape on its device: the bank of a
+        rank of a data-parallel mesh, which rank 0's rows overwrite
+        (``parallel/mesh.py::shard_bank``) without a fill of its own."""
+        with self._lock:
+            self.rows = (torch.zeros((self.capacity, 10), dtype=torch.int32,
+                                     device=self.device),
+                         torch.zeros((self.capacity, self.P), dtype=torch.int8,
+                                     device=self.device))
+        return self
+
     @property
     def refresh_writes(self) -> int:
         """Rows written by the asynchronous refresh since the bank was made."""

@@ -148,6 +148,14 @@ class GreedyDFSSolver:
 
         return False
 
+    def replay(self, stack) -> int:
+        """Replay a solution stack from the initial board; returns the lines
+        cleared (``visualize_moves`` without the printing)."""
+        self.reset()
+        for name, rotation, col in stack:
+            self._place(GEN_SHAPES[name][rotation], col)
+        return self.lines_cleared
+
     # -- display --------------------------------------------------------------
 
     def visualize(self, board=None) -> str:

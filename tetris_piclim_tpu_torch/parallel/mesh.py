@@ -19,6 +19,10 @@ device, and the same layout is kept by hand:
 * one all-reduce per learner update carries the gradients (and the loss
   terms), one per chunk the chunk's counts.
 
+A mesh may span the first n ranks of a larger group (``make_mesh(n)``, as
+JAX's takes the first n devices): its collectives then run over a group of
+their own, and the other ranks get no mesh.
+
 Divisibility contracts: ``num_envs`` and ``replay_capacity`` must be
 multiples of the mesh size (checked in :func:`shard_train_state`, with
 JAX's message).
@@ -39,12 +43,15 @@ from .distributed import process_device
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The ranks of a process group along one axis (``"dp"``). ``active``
-    is False for the one-process mesh, whose collectives do nothing."""
+    is False for the one-process mesh, whose collectives do nothing.
+    ``group`` is the process group (None: the default group); ``rank`` is
+    this process's rank within it."""
     rank: int
     size: int
     device: torch.device
     axis: str = "dp"
     active: bool = False
+    group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
 
     @property
     def shape(self) -> dict:
@@ -54,45 +61,60 @@ class Mesh:
     def is_root(self) -> bool:
         return self.rank == 0
 
+    @property
+    def src(self) -> int:
+        """The global rank of the group's rank 0, which broadcasts."""
+        return 0 if self.group is None else dist.get_global_rank(self.group, 0)
+
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "dp",
-              device="cuda") -> Mesh:
-    """The mesh of every process of the default group (one process alone:
-    a one-rank mesh). A mesh spans the whole group: asking for more ranks
-    than the group has raises as JAX does, and so does asking for fewer
-    (launch that many processes instead)."""
+              device="cuda") -> Optional[Mesh]:
+    """The mesh of the first ``n_devices`` processes of the default group
+    (all of them by default; one process alone: a one-rank mesh), as JAX
+    takes the first n devices. Fewer ranks than the group: every rank of
+    the group must call this (``dist.new_group`` is collective), ranks
+    ``[0, n)`` get a mesh over the new group and the others get None.
+    Asking for more ranks than the group has raises as JAX does."""
     active = dist.is_initialized()
     world = dist.get_world_size() if active else 1
     n = world if n_devices is None else n_devices
     if n > world:
         raise ValueError(f"requested {n} devices, have {world}")
-    if n < world:
-        raise ValueError(f"requested {n} devices of a group of {world}: "
-                         "a mesh spans the whole process group")
-    return Mesh(rank=dist.get_rank() if active else 0, size=world,
-                device=process_device(device), axis=axis, active=active)
+    if n == world:
+        return Mesh(rank=dist.get_rank() if active else 0, size=world,
+                    device=process_device(device), axis=axis, active=active)
+    group = dist.new_group(list(range(n)))
+    if dist.get_rank() >= n:
+        return None
+    return Mesh(rank=dist.get_rank(group), size=n, device=process_device(device),
+                axis=axis, active=True, group=group)
 
 
 # -- collectives (no-ops on a one-process mesh) ---------------------------------
 
+STAGED = {"broadcasts": 0}   # broadcasts that went through the mesh's device
+
+
 def all_reduce(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """In-place sum (or ``"max"``) of ``t`` over the ranks."""
     if mesh.active:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=mesh.group)
     return t
 
 
 def broadcast(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """Rank 0's ``t`` into every rank's ``t``, in place. A tensor on the
     CPU goes through the mesh's device when that is a GPU (NCCL carries
-    only device memory)."""
+    only device memory); ``STAGED`` counts those."""
     if not mesh.active:
         return t
     if t.device == mesh.device:
-        dist.broadcast(t, 0)
+        dist.broadcast(t, mesh.src, group=mesh.group)
         return t
+    STAGED["broadcasts"] += 1
     staged = t.to(mesh.device)
-    dist.broadcast(staged, 0)
+    dist.broadcast(staged, mesh.src, group=mesh.group)
     t.copy_(staged)
     return t
 
@@ -102,8 +124,14 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     if not mesh.active:
         return t[None]
     parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
     return torch.stack(parts)
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the mesh."""
+    if mesh.active:
+        dist.barrier(group=mesh.group)
 
 
 # -- layout -------------------------------------------------------------------------
@@ -136,7 +164,9 @@ def shard_bank(mesh: Mesh, bank):
     """The bank is replicated: rank 0's rows and families go to every rank
     (each rank resets from any row with a local gather, so the reset path
     needs no collective). Every rank's bank must hold rows of the same
-    shape. Returns the bank."""
+    shape. Rank 0's bank lock is held throughout, so rows that its
+    producers (``ConfigBank.start_refresh``) swap in meanwhile wait for the
+    next call. Returns the bank."""
     if not mesh.active:
         return bank
     with bank._lock:
@@ -150,7 +180,8 @@ def shard_bank(mesh: Mesh, bank):
     return bank
 
 
-def _replicate_host_ints(mesh: Mesh, values: Iterable[int]) -> list[int]:
+def replicate_ints(mesh: Mesh, values: Iterable[int]) -> list[int]:
+    """Rank 0's host ints, on every rank."""
     t = torch.tensor(list(values), dtype=torch.int64, device=mesh.device)
     return [int(v) for v in broadcast(mesh, t).tolist()]
 
@@ -181,7 +212,7 @@ def shard_train_state(mesh: Mesh, ts):
     replicate(mesh, ts.opt.mu + ts.opt.nu + ts.opt.nu_max)
     for g in (ts.gen, ts.host_gen):
         g.set_state(broadcast(mesh, g.get_state()))
-    ts.opt.count, ts.global_step, ts.updates_done = _replicate_host_ints(
+    ts.opt.count, ts.global_step, ts.updates_done = replicate_ints(
         mesh, (ts.opt.count, ts.global_step, ts.updates_done))
     ts.mesh = mesh
     return ts

@@ -29,6 +29,7 @@ NUM_PIECES = 7
 MAX_ROT = 4
 MASK_BOX = 4
 
+PIECE_I, PIECE_L, PIECE_J, PIECE_T, PIECE_S, PIECE_Z, PIECE_O = range(7)
 PIECE_NAMES = ("I", "L", "J", "T", "S", "Z", "O")
 PIECE_IDS = {name: idx for idx, name in enumerate(PIECE_NAMES)}
 
@@ -58,6 +59,13 @@ _ART: dict[str, tuple[tuple[str, ...], ...]] = {
 }
 
 
+def mask_rtopo(mask: np.ndarray) -> np.ndarray:
+    """Reverse topography of an unpadded mask: per column, the row index of
+    its lowest filled cell (every tetromino column has one)."""
+    h = mask.shape[0]
+    return (h - 1 - np.argmax(mask[::-1], axis=0)).astype(np.int32)
+
+
 def _build():
     masks = np.zeros((NUM_PIECES, MAX_ROT, MASK_BOX, MASK_BOX), dtype=bool)
     width = np.zeros((NUM_PIECES, MAX_ROT), dtype=np.int32)
@@ -76,7 +84,7 @@ def _build():
             masks[pid, r, :h, :w] = m
             width[pid, r] = w
             height[pid, r] = h
-            rtopo[pid, r, :w] = h - 1 - np.argmax(m[::-1], axis=0)
+            rtopo[pid, r, :w] = mask_rtopo(m)
     return masks, width, height, rtopo, nrot
 
 

@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..gen.bank import ConfigBank
-from ..parallel.mesh import all_gather, batch_sharding
+from ..parallel.mesh import all_gather, barrier, batch_sharding
 
 
 def save_train_state(path: str, state) -> str:
@@ -47,8 +47,8 @@ def save_train_state(path: str, state) -> str:
     if mesh is None or mesh.is_root:
         os.makedirs(path, exist_ok=True)
         torch.save(sd, out)
-    if mesh is not None and mesh.active:
-        dist.barrier()
+    if mesh is not None:
+        barrier(mesh)
     return out
 
 
@@ -69,7 +69,8 @@ def restore_train_state(path: str, state) -> None:
         # rank 0 reads; the others need not see the file
         box = [_load(path, "state.pt", "cpu") if mesh.is_root else None]
         if mesh.active:
-            dist.broadcast_object_list(box, src=0, device=mesh.device)
+            dist.broadcast_object_list(box, src=mesh.src, group=mesh.group,
+                                       device=mesh.device)
         sd = box[0]
     state.net.load_state_dict(sd["net"])
     state.target_net.load_state_dict(sd["target_net"])
