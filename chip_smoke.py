@@ -67,7 +67,17 @@ drives the port's two paths through the entry points a user calls:
     ``cli train``'s default-bank recipe (rank 0 fills the bank and runs
     the producers; every chunk reads rank 0's rows, broadcast and timed),
     (b) ``make_mesh(2)`` of three gloo ranks against one process, (c)
-    ``entry()`` (the flagship net on 256 envs) on the card against the CPU.
+    ``entry()`` (the flagship net on 256 envs) on the card against the CPU;
+18. the TPU-trained L=2/M=20 policy (``results/tpu_L2M20_v2_*.npz``, the
+    JAX package's first DQN run, carried out of its checkpoint by
+    ``tools/tpu_checkpoint.py``): (i) its greedy evaluation on the carried
+    4096 bank rows at the carried draws, the card against the port on the
+    CPU within 2 episodes, (ii) ``DQNTrainer.warm_start`` from the file and
+    ``evaluate`` over 4096 episodes of a fresh device-carved 4096-row bank,
+    within 0.03 of the TPU run's 0.5632, (iii) the actor kernel with these
+    weights at epsilon 0 (N=4096, K=8, head 14) against ``actor_reference``:
+    actions agree on at least 99.9% of env-steps, and every disagreement is
+    a near-tie (top two Q values within 1e-4).
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -114,7 +124,7 @@ from tetris_piclim_tpu_torch.ops import actor as actor_ops
 from tetris_piclim_tpu_torch.ops import bitboard as bb
 from tetris_piclim_tpu_torch.ops import rollout as rollout_ops
 from tetris_piclim_tpu_torch.utils.checkpoint import (
-    restore_bank, save_bank, save_train_state,
+    load_flax_npz, restore_bank, save_bank, save_train_state,
 )
 from tetris_piclim_tpu_torch.utils.config import DQNConfig, EnvConfig, TrainConfig
 
@@ -1701,6 +1711,110 @@ def phase_entry() -> dict:
     return {"q_max_abs_err": q_err, "envs_compared": compared, "step_ms": ms}
 
 
+TPU_PARAMS = ROOT / "results" / "tpu_L2M20_v2_params.npz"
+TPU_EVAL = ROOT / "results" / "tpu_L2M20_v2_eval.npz"
+TPU_GREEDY = 0.5632  # the TPU run's own greedy win rate (train_L2M20_v2_summary.json)
+
+
+def tpu_net(device) -> QNetwork:
+    net = QNetwork()
+    net.load_state_dict(load_flax_npz(str(TPU_PARAMS), "cpu")[0])
+    return net.to(device).eval()
+
+
+def carried_status(net: QNetwork, ev: dict, device) -> np.ndarray:
+    """Each episode's final status of the greedy policy on the carried rows
+    at the carried draws."""
+    idx = torch.as_tensor(ev["idx"], dtype=torch.long, device=device)
+    cols = bb.pack_board(torch.as_tensor(ev["boards"], device=device))
+    pieces = torch.as_tensor(ev["pieces"], device=device)
+    env = bb.make_state_batch(cols[idx], pieces[idx], 2, 20)
+    return agent_lib.greedy_rollout(net, env, 21, bb).status.cpu().numpy()
+
+
+def top2_gap(q: torch.Tensor) -> torch.Tensor:
+    top2 = q.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def phase_tpu_policy() -> dict:
+    """The TPU-trained policy on the card: (i) the carried greedy
+    evaluation, (ii) a fresh bank, (iii) the actor kernel on its weights."""
+    with np.load(TPU_EVAL) as z:
+        ev = {k: z[k] for k in z.files}
+    net = tpu_net(DEV)
+
+    print("TPU policy (i): greedy evaluation on the 4096 carried rows and draws, "
+          "card against the port on the CPU")
+    t0 = time.perf_counter()
+    status = carried_status(net, ev, DEV)
+    sync()
+    card_s = time.perf_counter() - t0
+    cpu_status = carried_status(tpu_net("cpu"), ev, "cpu")
+    apart = int((status != cpu_status).sum())
+    jax_apart = int((status != ev["status"]).sum())
+    carried_wr = float((status == 1).mean())
+    check(apart <= 2, f"{apart} of 4096 episodes end otherwise than on the CPU (<= 2); "
+                      f"win rate {carried_wr} (CPU {float((cpu_status == 1).mean())}, "
+                      f"JAX {float(ev['win_rate'])}, {jax_apart} episodes apart from "
+                      f"JAX's; {card_s:.2f} s on the card)")
+
+    print("TPU policy (ii): warm_start from the file, evaluate 4096 episodes of a "
+          "fresh device-carved 4096-row bank (seed 5)")
+    cfg = TrainConfig(env=EnvConfig(L=2, M=20), num_envs=256, bank_capacity=4096,
+                      replay_capacity=8192, seed=5)
+    t0 = time.perf_counter()
+    bank = ConfigBank(2, 20, capacity=4096, seed=5, device=DEV).fill_device()
+    trainer = DQNTrainer(cfg, bank=bank, device=DEV)
+    trainer.warm_start(str(TPU_PARAMS))
+    fresh = trainer.evaluate(n_episodes=4096)
+    fresh_s = time.perf_counter() - t0
+    check(abs(fresh["win_rate"] - TPU_GREEDY) <= 0.03,
+          f"win rate {fresh['win_rate']} within 0.03 of the TPU run's {TPU_GREEDY} "
+          f"(bank fill and evaluation {fresh_s:.2f} s)")
+
+    print("TPU policy (iii): actor kernel vs actor_reference on the trained weights, "
+          "epsilon 0, N=4096, K=8, head 14, from the fresh bank's rows")
+    n, K = 4096, 8
+    window = (bank.cols[:256].contiguous(), bank.pieces[:256].contiguous())
+    state = bb.make_state_batch(bank.cols, bank.pieces, 2, 20)
+    draws = actor_draws(np.random.default_rng(18), K, n, 256)
+    eps = dict(eps_start=0.0, eps_end=0.0, eps_decay=1000.0, n_steps=K)
+    ker = actor_ops.actor_rollout_fused(state, net, *window, 0, 0, draws=draws,
+                                        return_q=True, **eps)
+    ref = actor_ops.actor_reference(state, net, *window, 0, draws=draws,
+                                    return_q=True, **eps)
+    sync()
+    # an env is comparable at step k while all its earlier actions agreed
+    in_sync = torch.ones(n, dtype=torch.bool, device=DEV)
+    disagree = compared = 0
+    q_err = worst_gap = 0.0
+    for k in range(K):
+        qk, qr = ker[4][k], ref[4][k]
+        q_err = max(q_err, float((qk - qr).abs()[in_sync].max()))
+        rot_off = ker[1].rot[k] != ref[1].rot[k]
+        col_off = ker[1].col[k] != ref[1].col[k]
+        off = in_sync & (rot_off | col_off)
+        gap = torch.maximum(torch.where(rot_off, top2_gap(qr[:, :4]), 0.0),
+                            torch.where(col_off, top2_gap(qr[:, 4:]), 0.0))
+        if bool(off.any()):
+            worst_gap = max(worst_gap, float(gap[off].max()))
+        compared += int(in_sync.sum())
+        disagree += int(off.sum())
+        in_sync &= ~off
+    agree = 1.0 - disagree / max(compared, 1)
+    check(agree >= 0.999, f"actions agree on {agree:.6f} >= 0.999 of {compared} "
+                          f"env-steps ({disagree} disagree; Q within {q_err:.3g})")
+    check(worst_gap < 1e-4, f"every disagreement a near-tie: largest top-two gap "
+                            f"{worst_gap:.3g} < 1e-4")
+    return {"carried_win_rate": carried_wr, "carried_apart_from_cpu": apart,
+            "carried_apart_from_jax": jax_apart, "carried_card_s": card_s,
+            "fresh_bank_win_rate": fresh["win_rate"], "fresh_s": fresh_s,
+            "actor_agree": agree, "actor_disagreements": disagree,
+            "actor_env_steps_compared": compared, "actor_q_max_abs_err": q_err,
+            "actor_largest_tie_gap": worst_gap}
+
+
 def multigpu_worker(kind: str, out: str) -> int:
     res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo,
            "refresh2": worker_mesh_refresh,
@@ -1776,6 +1890,7 @@ def main() -> int:
     prof = phase_profile_mfu()
     multi = phase_multigpu()
     extras = phase_mesh_extras()
+    tpu = phase_tpu_policy()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1826,6 +1941,7 @@ def main() -> int:
         "trace_kernel_events": prof["trace_kernel_events"]}}))
     print(json.dumps({"multigpu": multi, "card": smi}))
     print(json.dumps({"mesh_refresh_submesh_entry": extras, "card": smi}))
+    print(json.dumps({"tpu_policy": tpu, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

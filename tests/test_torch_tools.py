@@ -3,7 +3,10 @@
 ``tools/generation_bench.py`` and ``tools/single_env_bench.py`` (the
 harnesses of ``benchmarks/bench_generation.py`` and
 ``benchmarks/bench_single_env.py``), ``tools/learning_check.py`` (the
-learning curve against the JAX run's, here against a stub curve), and
+learning curve against the JAX run's, here against a stub curve, and the
+flagship recipe's reading of its committed JAX log),
+``tools/learning_probe.py`` (either package's trainer; ``--jax-root`` here
+on a stub package; the bfloat16 forward-and-backward ``nn.Linear``), and
 ``tools/trainer_profile.py``, which needs a card and refuses to run without
 one. The numbers are CPU
 numbers and mean nothing; the shapes of the results are checked."""
@@ -50,7 +53,9 @@ def test_generation_bench_small():
 
 
 def _tool(args: list, timeout: int) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one thread, as in this process: on a busy machine torch's default of
+    # one thread per core makes a tiny run wait on the others for minutes
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -120,7 +125,136 @@ def test_learning_check_curve_across_resumed_segments(tmp_path):
     assert res["band"]["greedy"]["inside"]
 
 
-@pytest.mark.parametrize("matmul", ["f32", "bf16"])
+def test_learning_check_flagship_recipe_reads_the_jax_log():
+    """``--recipe flagship``: round 4 stage C's flags, and JAX's rows read
+    from ``results/train_r4_L5df500.log`` at the band steps."""
+    import learning_check
+
+    a = learning_check.parse(["--recipe", "flagship", "--device", "cpu"])
+    assert (a.lines, a.moves, a.num_envs, a.bank, a.log_every, a.checkpoint_every) == (
+        5, 25, 2048, 4096, 1000, 10_000)
+    cmd = learning_check.train_command(a, a.steps, "CKPT")
+    flags = " ".join(cmd[cmd.index("train") + 1:])
+    for want in ("-L 5 -M 25", "--num-envs 2048", "--bank 4096 --device-bank",
+                 "--steps 100000", "--log-every 1000", "--seed 0",
+                 "--model conv --dueling --joint --updates 4 --device-refresh 1 "
+                 "--device-forward 0.25"):
+        assert want in flags, (want, flags)
+    ref = learning_check.read_reference(a.reference, a.num_envs)
+    rows = {r["step"]: r["win_rate"] for r in ref["history"]}
+    assert len(rows) == 500 and min(rows) == 1000 and max(rows) == 500_000
+    assert [rows[s] for s in (20_000, 25_000, 30_000, 40_000, 50_000, 75_000, 100_000)] == [
+        0.058, 0.100, 0.162, 0.301, 0.396, 0.520, 0.579]
+    assert ref["final_greedy_win_rate"] is None
+    band_steps = [int(x) for x in a.band_steps.split(",")]
+    assert band_steps == [25_000, 50_000, 75_000, 100_000]
+    # a run cut at 60k: the rows reached are held, the others wait
+    curve = [{"step": s, "env_steps": s * 2048, "win_rate": rows[s] + 0.04,
+              "loss": 0.1, "sps": 5e4} for s in range(1000, 60_001, 1000)]
+    res = learning_check.compare(curve, ref, 0.05, band_steps, greedy=None)
+    assert [c["inside"] for c in res["band"]["training"]] == [True, True, None, None]
+    assert res["band"]["first_row_outside"] is None and not res["band"]["inside"]
+    assert res["band"]["greedy"] == {"port": None, "jax": None, "inside": None}
+    res = learning_check.compare(curve[:50] + [dict(curve[49], step=75_000)] * 0, ref,
+                                 0.03, band_steps, greedy=None)
+    assert [c["inside"] for c in res["band"]["training"]] == [False, False, None, None]
+    assert res["band"]["first_row_outside"] == 25_000
+    default = learning_check.parse([])
+    assert (default.recipe, default.lines, default.num_envs, default.flags) == (
+        "l2", 2, 4096, [])
+
+
+def test_keep_newest_checkpoint(tmp_path):
+    import learning_check
+
+    for n in (10, 20, 9):
+        (tmp_path / f"step_{n}").mkdir()
+    learning_check.keep_newest_checkpoint(tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_20"]
+    (tmp_path / "final").mkdir()
+    learning_check.keep_newest_checkpoint(tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["final"]
+
+
+# a JAX package in name only: records the TrainConfig fields it is given
+_STUB = {
+    "__init__.py": "",
+    "dqn/__init__.py": "",
+    "gen/__init__.py": "",
+    "utils/__init__.py": "",
+    "utils/config.py": (
+        "class EnvConfig:\n"
+        "    def __init__(self, L, M):\n        self.L, self.M = L, M\n"
+        "class TrainConfig:\n"
+        "    def __init__(self, *, env, num_envs, bank_capacity, replay_capacity,\n"
+        "                 total_steps, log_every, seed):\n"
+        "        self.num_envs, self.steps, self.log_every = num_envs, total_steps, log_every\n"),
+    "gen/bank.py": (
+        "class ConfigBank:\n"
+        "    def __init__(self, L, M, capacity, seed):\n        pass\n"
+        "    def fill_device(self):\n        return self\n"),
+    "dqn/train.py": (
+        "class DQNTrainer:\n"
+        "    def __init__(self, cfg, bank):\n        self.cfg = cfg\n"
+        "    def train(self, log_fn):\n"
+        "        c = self.cfg\n"
+        "        return {'history': [{'env_steps': s * c.num_envs, 'win_rate': 0.25,\n"
+        "                             'loss': 0.5} for s in range(c.log_every, c.steps + 1,\n"
+        "                                                        c.log_every)]}\n"
+        "    def evaluate(self, n_episodes):\n        return {'win_rate': 0.75}\n"),
+}
+
+
+def test_learning_probe_jax_root(tmp_path):
+    """``--jax-root DIR`` runs the package found in DIR, passing only the
+    TrainConfig fields an old version has, and names DIR and its commit."""
+    pkg = tmp_path / "tetris_piclim_tpu"
+    for name, text in _STUB.items():
+        (pkg / name).parent.mkdir(parents=True, exist_ok=True)
+        (pkg / name).write_text(text)
+    (tmp_path / "COMMIT").write_text("b5c6e5a259db87eb62a2de0188d003336b547d42\n")
+    args = ["tools/learning_probe.py", "--device", "cpu", "--num-envs", "8",
+            "--steps", "20", "--log-every", "10", "--seeds", "3"]
+    out = _tool([*args, "--package", "jax", "--jax-root", str(tmp_path)], timeout=60)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["jax_root"] == str(tmp_path)
+    assert res["jax_commit"] == "b5c6e5a259db87eb62a2de0188d003336b547d42"
+    assert res["env_steps"] == [80, 160] and res["win_rate"] == [0.25, 0.25]
+    assert res["greedy_win_rate"] == 0.75 and res["seed"] == 3
+    out = _tool([*args, "--jax-root", str(tmp_path)], timeout=60)
+    assert out.returncode != 0 and "--jax-root is for --package jax" in out.stderr
+    (tmp_path / "COMMIT").unlink()
+    (pkg / "__init__.py").unlink()  # not a package: the checkout's is found
+    out = _tool([*args, "--package", "jax", "--jax-root", str(tmp_path)], timeout=60)
+    assert out.returncode != 0 and "tetris_piclim_tpu came from" in out.stderr
+
+
+def test_learning_probe_summarize(tmp_path):
+    """``--summarize``: runs that differ only in their seed become one set,
+    each chunk as mean, sample sd and lowest."""
+    base = {"tool": "learning_probe", "package": "jax", "matmul": "f32",
+            "jax_root": None, "jax_commit": None, "device": "cpu", "card": None,
+            "num_envs": 8, "bank": 8, "replay": 64, "steps": 20,
+            "env_steps": [80, 160], "loss": [0.1, 0.1], "wall_s": 1.0}
+    runs = [dict(base, seed=s, win_rate=w, greedy_win_rate=g)
+            for s, w, g in ((0, [0.1, 0.3], 0.5), (1, [0.3, 0.5], 0.7))]
+    runs.append(dict(base, seed=0, package="torch", win_rate=[0.2, 0.2],
+                     greedy_win_rate=0.1))
+    path = tmp_path / "runs.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in runs))
+    out = _tool(["tools/learning_probe.py", "--summarize", str(path)], timeout=60)
+    assert out.returncode == 0, out.stderr
+    jax_set, torch_set = [json.loads(line) for line in out.stdout.splitlines()]
+    assert jax_set["seeds"] == [0, 1] and torch_set["seeds"] == [0]
+    assert jax_set["win_rate_mean"] == pytest.approx([0.2, 0.4])
+    assert jax_set["win_rate_sd"] == pytest.approx([0.1 * 2 ** 0.5] * 2)
+    assert jax_set["win_rate_min"] == pytest.approx([0.1, 0.3])
+    assert jax_set["greedy_mean"] == pytest.approx(0.6)
+    assert torch_set["win_rate_sd"] == [0.0, 0.0] and torch_set["greedy_sd"] == 0.0
+
+
+@pytest.mark.parametrize("matmul", ["f32", "bf16", "bf16-fwd-bwd"])
 def test_learning_probe_small(matmul):
     """The probe at a tiny size; bf16 rounds every Linear's operands."""
     out = _tool(["tools/learning_probe.py", "--device", "cpu", "--num-envs", "32",
@@ -150,3 +284,44 @@ def test_learning_probe_bf16_linear_is_one_bf16_pass():
     want = x.bfloat16().double() @ lin.weight.bfloat16().double().T + lin.bias.double()
     torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
     assert not torch.equal(got, lin(x))
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (2, 3, 7)])
+def test_bf16_fwd_bwd_linear_gradients(shape):
+    """``Bf16Linear``: the forward product and both backward products are
+    float32 products of bfloat16-rounded operands (the bias stays float32),
+    checked against the same products in float64 on the rounded operands,
+    and against plain float32, which they must differ from."""
+    import learning_probe
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(shape, generator=gen, requires_grad=True)
+    w = torch.randn(3, 7, generator=gen, requires_grad=True)
+    b = torch.randn(3, generator=gen, requires_grad=True)
+    g = torch.randn(*shape[:-1], 3, generator=gen)
+    out = learning_probe.Bf16Linear.apply(x, w, b)
+    out.backward(g)
+    r = lambda t: t.detach().bfloat16().double()  # noqa: E731
+    want_out = r(x) @ r(w).T + b.detach().double()
+    want_gx = r(g) @ r(w)
+    want_gw = r(g).reshape(-1, 3).T @ r(x).reshape(-1, 7)
+    want_gb = g.double().reshape(-1, 3).sum(0)
+    for got, want in ((out, want_out), (x.grad, want_gx), (w.grad, want_gw),
+                      (b.grad, want_gb)):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
+    # plain float32 autograd on the unrounded operands gives other gradients
+    x32, w32 = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    torch.nn.functional.linear(x32, w32, b.detach()).backward(g)
+    assert not torch.allclose(x.grad, x32.grad, rtol=0, atol=1e-6)
+    assert not torch.allclose(w.grad, w32.grad, rtol=0, atol=1e-6)
+
+    lin = torch.nn.Linear(7, 3)
+    forward = torch.nn.Linear.forward
+    try:
+        learning_probe.round_linear_fwd_bwd_to_bf16()
+        y = lin(x.detach())
+    finally:
+        torch.nn.Linear.forward = forward
+    torch.testing.assert_close(y, learning_probe.Bf16Linear.apply(
+        x.detach(), lin.weight, lin.bias), rtol=0, atol=0)

@@ -13,16 +13,22 @@ gathered (a collective, so every rank calls :func:`save_train_state`) and
 rank 0 writes them. :func:`restore_train_state` reads the file on rank 0
 and hands every rank its part. So a checkpoint restores on any mesh size,
 one process included.
+
+:func:`load_flax_npz` reads the weights of a JAX run written out as numpy
+(``tools/tpu_checkpoint.py``: flax paths as keys), so a policy trained by
+the JAX package loads into the port with no JAX.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..gen.bank import ConfigBank
+from ..models.qnet import params_from_flax
 from ..parallel.mesh import all_gather, barrier, batch_sharding
 
 
@@ -89,6 +95,30 @@ def restore_params(path: str, device) -> tuple[dict, dict]:
     """Only the (online, target) network state_dicts of a checkpoint."""
     sd = _load(path, "state.pt", device)
     return sd["net"], sd["target_net"]
+
+
+def read_flax_npz(path: str) -> dict:
+    """The nested parameter trees of an ``.npz`` whose keys are flax paths
+    (``params/params/Dense_0/kernel``, ...), as numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def load_flax_npz(path: str, device) -> tuple[dict, dict]:
+    """The (online, target) ``QNetwork`` state_dicts of an ``.npz`` holding
+    a JAX train state's two parameter trees under their flax paths
+    (``params/...`` and ``target_params/...``; :func:`read_flax_npz`),
+    converted by ``params_from_flax``."""
+    tree = read_flax_npz(path)
+    return tuple({k: v.to(device) for k, v in params_from_flax(tree[name]).items()}
+                 for name in ("params", "target_params"))
 
 
 def save_bank(path: str, bank: ConfigBank) -> str:
