@@ -77,7 +77,18 @@ drives the port's two paths through the entry points a user calls:
     within 0.03 of the TPU run's 0.5632, (iii) the actor kernel with these
     weights at epsilon 0 (N=4096, K=8, head 14) against ``actor_reference``:
     actions agree on at least 99.9% of env-steps, and every disagreement is
-    a near-tie (top two Q values within 1e-4).
+    a near-tie (top two Q values within 1e-4);
+19. the flagship policy the port trained on the H100
+    (``results/flagship_L5M25_h100_policy.npz``, L=5/M=25, conv (32,64) +
+    dueling + joint, carried out of its checkpoint by
+    ``tools/flagship_policy.py`` with its training bank and its 2048
+    held-out rows): ``DQNTrainer.warm_start`` from the file (as ``cli eval
+    --checkpoint`` loads it), 8192 greedy episodes on the carried held-out
+    rows within 0.005 of the recorded held-out win rate (per family and on
+    the training bank reported), and the greedy episode of each of 256
+    held-out rows on the card against the CPU, TF32 off: every episode
+    that ends otherwise has a top-two Q gap under 1e-3 on its way; all in
+    under 60 s, with no DFS (the rows are carried).
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -124,7 +135,7 @@ from tetris_piclim_tpu_torch.ops import actor as actor_ops
 from tetris_piclim_tpu_torch.ops import bitboard as bb
 from tetris_piclim_tpu_torch.ops import rollout as rollout_ops
 from tetris_piclim_tpu_torch.utils.checkpoint import (
-    load_flax_npz, restore_bank, save_bank, save_train_state,
+    load_flax_npz, read_policy_npz, restore_bank, save_bank, save_train_state,
 )
 from tetris_piclim_tpu_torch.utils.config import DQNConfig, EnvConfig, TrainConfig
 
@@ -1815,6 +1826,86 @@ def phase_tpu_policy() -> dict:
             "actor_largest_tie_gap": worst_gap}
 
 
+FLAGSHIP_POLICY = ROOT / "results" / "flagship_L5M25_h100_policy.npz"
+FLAGSHIP_TIE = 1e-3
+
+
+def greedy_min_gap(net, env, n_steps: int):
+    """``agent.greedy_rollout`` on the bitboard, and per env the smallest
+    top-two Q gap of the actions it took while running."""
+    gap = torch.full(env.status.shape, float("inf"), device=env.status.device)
+    for _ in range(n_steps):
+        q = net(bb.observe(env))
+        rot, col = agent_lib.q_ops(q.shape[-1]).greedy(q)
+        g = (top2_gap(q) if q.shape[-1] != 14
+             else torch.minimum(top2_gap(q[:, :4]), top2_gap(q[:, 4:])))
+        running = env.status == agent_lib.RUNNING
+        gap = torch.where(running, torch.minimum(gap, g), gap)
+        env = bb.state_where(~running, env, bb.step(env, rot, col).state)
+    return env, gap
+
+
+def phase_flagship_policy() -> dict:
+    """The port's own flagship policy on its carried held-out rows: the
+    recorded held-out win rate again, and the card against the CPU."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is off")
+    t0 = time.perf_counter()
+    pol = read_policy_npz(str(FLAGSHIP_POLICY), DEV)
+    meta = pol["meta"]
+    rec = meta["eval"]
+    L, M = meta["L"], meta["M"]
+    hold = pol["banks"]["holdout"]
+    print(f"flagship policy (i): step {meta['step']}, warm_start from the file, "
+          f"8192 greedy episodes on the {hold.capacity} carried held-out rows, "
+          f"families {hold.family_counts}")
+    cfg = TrainConfig(env=EnvConfig(L=L, M=M), num_envs=64,
+                      bank_capacity=pol["banks"]["train"].capacity,
+                      replay_capacity=8192, seed=0)  # cli eval's
+    trainer = DQNTrainer(cfg, bank=pol["banks"]["train"], net=flagship_net(0),
+                         device=DEV)
+    trainer.warm_start(str(FLAGSHIP_POLICY))
+    got = {"holdout": trainer.evaluate(8192, bank=hold),
+           "holdout_carve": trainer.evaluate(8192, bank=hold.subset(FAMILY_CARVE)),
+           "holdout_forward": trainer.evaluate(8192, bank=hold.subset(FAMILY_FORWARD)),
+           "train_bank": trainer.evaluate(8192)}
+    sync()
+    eval_s = time.perf_counter() - t0
+    recorded = {k: rec[k]["win_rate"] for k in ("holdout", "holdout_carve",
+                                                "holdout_forward")}
+    recorded["train_bank"] = (rec.get("bank") or rec["train_bank"])["win_rate"]
+    rates = {k: v["win_rate"] for k, v in got.items()}
+    check(abs(rates["holdout"] - recorded["holdout"]) <= 0.005,
+          f"held-out win rate {rates['holdout']} within 0.005 of the recorded "
+          f"{recorded['holdout']} (all four {rates}, recorded {recorded}; "
+          f"{eval_s:.2f} s)")
+
+    print("flagship policy (ii): the greedy episode of 256 held-out rows, card "
+          "against CPU, TF32 off")
+    n = 256
+    cpu_net = flagship_net(0)
+    cpu_net.load_state_dict({k: v.cpu() for k, v in pol["net"].items()})
+    ends = []
+    for net, dev in ((trainer.state.net, DEV), (cpu_net.eval(), torch.device("cpu"))):
+        env = bb.make_state_batch(hold.cols[:n].to(dev), hold.pieces[:n].to(dev), L, M)
+        with torch.no_grad():
+            env, gap = greedy_min_gap(net, env, M + 1)
+        ends.append((env.status.cpu(), gap.cpu()))
+    (st_card, gap_card), (st_cpu, gap_cpu) = ends
+    apart = st_card != st_cpu
+    near_tie = torch.minimum(gap_card, gap_cpu) < FLAGSHIP_TIE
+    check(bool((near_tie | ~apart).all()),
+          f"{int(apart.sum())} of {n} episodes end otherwise on the card than on "
+          f"the CPU, {int((apart & ~near_tie).sum())} of them with no top-two Q gap "
+          f"under {FLAGSHIP_TIE} ({int(near_tie.sum())} rows meet such a near-tie)")
+    total_s = time.perf_counter() - t0
+    check(total_s < 60, f"phase 19 took {total_s:.1f} s (< 60)")
+    return {"step": meta["step"], "win_rates": rates, "recorded": recorded,
+            "holdout_families": hold.family_counts, "eval_s": eval_s,
+            "rows_compared": n, "episodes_apart": int(apart.sum()),
+            "near_tie_rows": int(near_tie.sum()), "total_s": total_s}
+
+
 def multigpu_worker(kind: str, out: str) -> int:
     res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo,
            "refresh2": worker_mesh_refresh,
@@ -1891,6 +1982,7 @@ def main() -> int:
     multi = phase_multigpu()
     extras = phase_mesh_extras()
     tpu = phase_tpu_policy()
+    flag_policy = phase_flagship_policy()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -1942,6 +2034,7 @@ def main() -> int:
     print(json.dumps({"multigpu": multi, "card": smi}))
     print(json.dumps({"mesh_refresh_submesh_entry": extras, "card": smi}))
     print(json.dumps({"tpu_policy": tpu, "card": smi}))
+    print(json.dumps({"flagship_policy": flag_policy, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

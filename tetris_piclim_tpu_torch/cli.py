@@ -146,7 +146,8 @@ def _device_bank(args, L: int, M: int, capacity: int, seed: int):
 
 def _holdout_eval(args, trainer, episodes: int) -> dict:
     """Greedy results on a held-out bank disjoint from the trainer's bank,
-    in all and per family."""
+    in all and per family; ``holdout.build`` is where its rows came from
+    (``make_holdout_bank``'s ``provenance``)."""
     from .gen.bank import FAMILY_CARVE, FAMILY_FORWARD, make_holdout_bank
 
     cfg = trainer.cfg
@@ -155,6 +156,11 @@ def _holdout_eval(args, trainer, episodes: int) -> dict:
                                 train_bank=trainer.bank, device=args.device)
     out = {"holdout": trainer.evaluate(n_episodes=episodes, bank=holdout)}
     out["holdout"]["families"] = holdout.family_counts
+    out["holdout"]["build"] = holdout.provenance
+    if args.save_holdout:
+        from .utils.checkpoint import save_bank
+
+        save_bank(args.save_holdout, holdout)
     for name, fam in (("carve", FAMILY_CARVE), ("forward", FAMILY_FORWARD)):
         sub = holdout.subset(fam)
         if sub is not None:
@@ -418,6 +424,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "disjoint from the training bank")
         p.add_argument("--holdout-bank", type=int, default=1024,
                        help="held-out bank capacity for --eval-holdout")
+        p.add_argument("--save-holdout", metavar="DIR",
+                       help="write the --eval-holdout bank's rows and families "
+                            "to DIR/bank.pt (port only)")
         p.add_argument("--checkpoint")
         device_flag(p)
 

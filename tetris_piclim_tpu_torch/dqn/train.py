@@ -70,7 +70,8 @@ from ..parallel.mesh import (
     Mesh, all_reduce, batch_sharding, broadcast, replicate, replicate_ints,
     shard_bank, shard_train_state,
 )
-from ..utils.checkpoint import (load_flax_npz, restore_params, restore_train_state,
+from ..utils.checkpoint import (is_policy_npz, load_flax_npz, read_policy_npz,
+                                restore_params, restore_train_state,
                                 save_train_state)
 from ..utils.config import TrainConfig
 from ..utils.device import resolve_device
@@ -638,10 +639,16 @@ class DQNTrainer:
 
     def warm_start(self, path: str) -> None:
         """Load only the network weights (online and target): from a
-        checkpoint of this package, or from an ``.npz`` of a JAX run's flax
-        MLP parameters (``utils/checkpoint.py::load_flax_npz``)."""
-        load = load_flax_npz if str(path).endswith(".npz") else restore_params
-        net_sd, target_sd = load(path, self.device)
+        checkpoint of this package, from a policy ``.npz`` of this package
+        (``utils/checkpoint.py::save_policy_npz``; its online net for
+        both), or from an ``.npz`` of a JAX run's flax MLP parameters
+        (``utils/checkpoint.py::load_flax_npz``)."""
+        if not str(path).endswith(".npz"):
+            net_sd, target_sd = restore_params(path, self.device)
+        elif is_policy_npz(path):
+            net_sd = target_sd = read_policy_npz(path, self.device)["net"]
+        else:
+            net_sd, target_sd = load_flax_npz(path, self.device)
         self.state.net.load_state_dict(net_sd)
         self.state.target_net.load_state_dict(target_sd)
 

@@ -405,7 +405,11 @@ def make_holdout_bank(
     * device carves from the same generator for the rest.
 
     Every row that collides with a training row (or an earlier holdout row)
-    is dropped, and disjointness is checked at the end."""
+    is dropped, and disjointness is checked at the end. The bank's
+    ``provenance`` says where its rows came from: ``host_forward`` and
+    ``device_forward`` rows, the ``host_seeds`` the DFS solver tried, and
+    the build's ``seconds``."""
+    t_start = time.monotonic()
     bank = ConfigBank(L, M, capacity=capacity, seed=seed, device=device)
     dev, P = bank.device, bank.P
     taken = train_bank.row_keys() if train_bank is not None else set()
@@ -430,6 +434,7 @@ def make_holdout_bank(
                 break
             add(np.asarray(b, dtype=bool),
                 np.asarray((p + [0] * P)[:P], dtype=np.int8))
+    n_host = len(rows)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     for _ in range(8):
@@ -463,4 +468,8 @@ def make_holdout_bank(
         overlap = bank.row_keys() & train_bank.row_keys()
         if overlap:
             raise RuntimeError(f"holdout/train overlap: {len(overlap)} rows")
+    bank.provenance = {"host_forward": n_host, "device_forward": n_forward_got - n_host,
+                       "carve": capacity - n_forward_got,
+                       "host_seeds": s - forward_seed_start,
+                       "seconds": time.monotonic() - t_start}
     return bank

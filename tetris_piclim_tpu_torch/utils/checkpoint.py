@@ -16,11 +16,15 @@ one process included.
 
 :func:`load_flax_npz` reads the weights of a JAX run written out as numpy
 (``tools/tpu_checkpoint.py``: flax paths as keys), so a policy trained by
-the JAX package loads into the port with no JAX.
+the JAX package loads into the port with no JAX. :func:`save_policy_npz`
+writes a policy trained by the port, with the bank rows it was evaluated
+on and the results, to one ``.npz`` that numpy alone reads
+(``tools/flagship_policy.py``); :func:`read_policy_npz` reads it back.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -29,6 +33,7 @@ import torch.distributed as dist
 
 from ..gen.bank import ConfigBank
 from ..models.qnet import params_from_flax
+from ..ops.bitboard import pack_board, unpack_board
 from ..parallel.mesh import all_gather, barrier, batch_sharding
 
 
@@ -139,3 +144,45 @@ def restore_bank(path: str, device) -> ConfigBank:
     return ConfigBank.from_rows(
         sd["L"], sd["M"], sd["cols"], sd["pieces"],
         None if family is None else family.cpu().numpy())
+
+
+def save_policy_npz(path: str, net_sd: dict, banks: dict, meta: dict) -> str:
+    """Write a policy and its evaluation rows to one ``.npz``: the online
+    net's state_dict under ``net/<name>`` (float32), each bank of ``banks``
+    (name -> :class:`ConfigBank`) as ``<name>_boards`` (bool[N, 20, 10]),
+    ``<name>_pieces`` (int8[N, M+1]) and ``<name>_family`` (int8[N]), and
+    ``meta`` (with the task's ``L`` and ``M``) as a JSON string."""
+    arrays = {f"net/{k}": v.detach().cpu().float().numpy() for k, v in net_sd.items()}
+    for name, bank in banks.items():
+        arrays[f"{name}_boards"] = unpack_board(bank.cols).cpu().numpy()
+        arrays[f"{name}_pieces"] = bank.pieces.cpu().numpy().astype(np.int8)
+        arrays[f"{name}_family"] = np.asarray(bank.family, dtype=np.int8)
+    arrays["meta"] = np.array(json.dumps(meta))
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def read_policy_npz(path: str, device="cpu") -> dict:
+    """:func:`save_policy_npz` output: ``{"net": state_dict, "banks":
+    {name: ConfigBank}, "meta": dict}``, tensors on ``device``."""
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta"]))
+        net = {k[4:]: torch.as_tensor(z[k], device=device)
+               for k in z.files if k.startswith("net/")}
+        banks = {}
+        for key in z.files:
+            if key.endswith("_boards"):
+                name = key[:-len("_boards")]
+                cols = pack_board(torch.as_tensor(z[key], device=device))
+                banks[name] = ConfigBank.from_rows(
+                    meta["L"], meta["M"], cols,
+                    torch.as_tensor(z[f"{name}_pieces"], device=device),
+                    z[f"{name}_family"])
+    return {"net": net, "banks": banks, "meta": meta}
+
+
+def is_policy_npz(path: str) -> bool:
+    """Whether an ``.npz`` is :func:`save_policy_npz` output (else a JAX
+    run's flax parameters)."""
+    with np.load(path) as z:
+        return "meta" in z.files

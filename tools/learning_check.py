@@ -2,6 +2,8 @@
 
     python3 tools/learning_check.py [--recipe l2|flagship] [--actor-fusion 8]
         [--resume CKPT] [--stop-at STEP] [--out DIR]
+    python3 tools/learning_check.py --recipe flagship --holdout-only \
+        --resume CKPT --out DIR
 
 Runs ``python -m tetris_piclim_tpu_torch train`` with the flags of a JAX
 run and reads the JAX run's training win rates beside the port's.
@@ -19,11 +21,16 @@ run's at 41M / 123M / 246M / 410M env steps.
 rates at L=5/M=25, as ``tools/round4a.sh`` stage C ran it (``--model conv
 --dueling --joint --updates 4 --num-envs 2048 --bank 4096 --device-bank
 --device-refresh 1 --device-forward 0.25``, 1000-step chunks, seed 0) for
-100k steps (204.8M env steps), less that run's 500k-step held-out
-evaluation. Its rows are read from ``results/train_r4_L5df500.log``; the
-band holds the training win rate at 25k / 50k / 75k / 100k steps (0.100 /
-0.396 / 0.520 / 0.579); the greedy win rate has no JAX counterpart at 100k
-and is only reported.
+its 500k steps (1.024G env steps), ending in its held-out evaluation
+(``--eval-holdout --holdout-bank 2048``, 8192 greedy episodes). Its rows
+are read from ``results/train_r4_L5df500.log``; the band holds the
+training win rate at 25k / 50k / 75k / 100k / 150k / 200k / 300k / 400k /
+500k steps (0.100 / 0.396 / 0.520 / 0.579 / 0.648 / 0.686 / 0.737 / 0.762
+/ 0.791), and the ``held_out`` block holds the port's held-out evaluation
+against the log's ``final_eval`` line: held-out in all within 0.03,
+carve and forward within 0.05, greedy on the training bank within 0.03
+(about five standard errors of 8192 episodes cycling 2048, 1024 and 1024
+fixed rows; JAX has one seed, so training noise comes on top).
 
 Either run checkpoints every ``--checkpoint-every`` steps (25k for ``l2``,
 10k for ``flagship``) into ``OUT/ckpt/step_<n>``, so a run can span several
@@ -34,22 +41,34 @@ restores the whole train state (weights, optimizer, replay ring, envs,
 generators); the device bank is filled anew from the seed, and a
 ``--device-refresh`` run draws its refresh seeds from the start of their
 stream again, so across a resume the bank's rows are not those of one
-unbroken run.
+unbroken run. No flag of the flagship recipe reads the total ``--steps``
+(each call passes ``cli train`` its own segment's length): epsilon decays
+by a constant, the forward height is fixed at 4 and PER is off.
 
-Each call's ``train`` output goes to ``OUT/segment_<first step>.log``; the
-curve is read back from every segment in OUT (a later segment's rows
-replace an earlier one's from its first step on), so a call cut at its
-time limit loses only the steps after its last checkpoint. After every
-call OUT keeps one checkpoint, the newest: the 131072-row replay ring,
-the weights and the optimizer moments, ~16 MB for the MLP and ~47 MB for
-the flagship's conv net.
+The held-out evaluation runs only in the segment that ends at ``--steps``
+(``cli train --eval-holdout``). ``--holdout-only`` reads it from the
+``--resume`` checkpoint instead, with ``cli eval --checkpoint CKPT
+--restore-bank CKPT --eval-holdout`` (the checkpoint's weights and its live
+training bank), and trains nothing: a reading of a run stopped short of
+``--steps``, or of one whose last segment was cut. Either writes
+``OUT/holdout_<step>.json`` (the evaluation's JSON, its held-out rows'
+provenance and build time) and the held-out rows to ``OUT/holdout_<step>/``.
+
+Each call's ``train`` output goes to ``OUT/segment_<first step>.log`` and
+its record (steps, wall time, the card, the host's load) to
+``OUT/segment_<first step>.json``; the curve is read back from every
+segment in OUT (a later segment's rows replace an earlier one's from its
+first step on), so a call cut at its time limit loses only the steps after
+its last checkpoint. After every call OUT keeps one checkpoint, the
+newest: the 131072-row replay ring, the weights and the optimizer moments,
+~16 MB for the MLP and ~47 MB for the flagship's conv net.
 
 Prints one JSON line, and writes it to ``OUT/result.json``: the port's
 training win rate at each chunk beside the JAX run's, the band check, the
-greedy win rate, env-steps/s, the wall time, and (on the GPU) the card's
-name and power limit as ``nvidia-smi`` gives them. A call stopped by
-``--timeout`` prints the curve so far and exits with 124. The JAX runs'
-files are only read.
+newest held-out reading against JAX's, each segment's env-steps/s and wall
+time beside the card's name and power limit as ``nvidia-smi`` gives them,
+and the rows around each resume. A call stopped by ``--timeout`` prints
+the curve so far and exits with 124. The JAX runs' files are only read.
 """
 
 from __future__ import annotations
@@ -63,30 +82,40 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "results" / "train_L2M20_v2_summary.json"
 FLAGSHIP_REFERENCE = ROOT / "results" / "train_r4_L5df500.log"
 
-# each recipe's task, sizes, train flags, JAX run and band rows
+# each recipe's task, sizes, train flags, JAX run, evaluation and band rows
 RECIPES = {
     "l2": {"lines": 2, "moves": 20, "num_envs": 4096, "bank": 4096,
-           "log_every": 10_000, "checkpoint_every": 25_000,
+           "steps": 100_000, "log_every": 10_000, "checkpoint_every": 25_000,
+           "eval_episodes": 4096, "eval_holdout": False, "holdout_bank": 1024,
            "reference": str(REFERENCE), "band_steps": "10000,30000,60000,100000",
-           "flags": []},
+           "model_flags": [], "flags": []},
     "flagship": {"lines": 5, "moves": 25, "num_envs": 2048, "bank": 4096,
-                 "log_every": 1000, "checkpoint_every": 10_000,
+                 "steps": 500_000, "log_every": 1000, "checkpoint_every": 10_000,
+                 "eval_episodes": 8192, "eval_holdout": True, "holdout_bank": 2048,
                  "reference": str(FLAGSHIP_REFERENCE),
-                 "band_steps": "25000,50000,75000,100000",
-                 "flags": ["--model", "conv", "--dueling", "--joint",
-                           "--updates", "4", "--device-refresh", "1",
+                 "band_steps": "25000,50000,75000,100000,150000,200000,"
+                               "300000,400000,500000",
+                 "model_flags": ["--model", "conv", "--dueling", "--joint"],
+                 "flags": ["--updates", "4", "--device-refresh", "1",
                            "--device-forward", "0.25"]},
 }
+
+# the held-out block: (key in either evaluation JSON, band); the training
+# bank is "train_bank" after ``cli train`` and "bank" after ``cli eval``
+HELD_OUT = {"holdout": ("holdout", 0.03), "carve": ("holdout_carve", 0.05),
+            "forward": ("holdout_forward", 0.05), "train_bank": ("train_bank", 0.03)}
 
 # one row of DQNTrainer.train's log
 _ROW = re.compile(r"^\[\s*(\d+)\] env_steps=(\S+) win_rate=(\S+) loss=(\S+) "
                   r"eps=(\S+) sps=(\S+)")
 _SEGMENT = re.compile(r"^segment_(\d+)\.log$")
+_HOLDOUT = re.compile(r"^holdout_(\d+)\.json$")
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -99,9 +128,13 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("-M", "--moves", type=int)
     p.add_argument("--num-envs", type=int)
     p.add_argument("--bank", type=int)
-    p.add_argument("--steps", type=int, default=100_000)
+    p.add_argument("--steps", type=int, help="the whole run's length")
     p.add_argument("--log-every", type=int)
-    p.add_argument("--eval-episodes", type=int, default=4096)
+    p.add_argument("--eval-episodes", type=int)
+    p.add_argument("--holdout-bank", type=int, metavar="N")
+    p.add_argument("--holdout-only", action="store_true",
+                   help="train nothing: read the held-out evaluation of the "
+                        "--resume checkpoint with cli eval")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--actor-fusion", type=int, default=0, metavar="K")
     p.add_argument("--checkpoint-every", type=int)
@@ -134,17 +167,35 @@ def resume_step(ckpt: str) -> int:
     return int(sd["global_step"])
 
 
-def train_command(a: argparse.Namespace, steps: int, ckpt_dir: str) -> list:
+def train_command(a: argparse.Namespace, steps: int, ckpt_dir: str,
+                  holdout_dir: Optional[str] = None) -> list:
+    """``cli train`` for one segment of ``steps`` steps; ``holdout_dir``
+    (given for the segment that ends at ``--steps``) adds the held-out
+    evaluation and keeps its rows there."""
     cmd = [sys.executable, "-m", "tetris_piclim_tpu_torch", "train",
            "-L", str(a.lines), "-M", str(a.moves), "--num-envs", str(a.num_envs),
            "--bank", str(a.bank), "--device-bank", "--steps", str(steps),
            "--log-every", str(a.log_every), "--eval-episodes", str(a.eval_episodes),
            "--seed", str(a.seed), "--actor-fusion", str(a.actor_fusion),
            "--checkpoint", ckpt_dir, "--checkpoint-every", str(a.checkpoint_every),
-           "--device", a.device, *a.flags]
+           "--device", a.device, *a.model_flags, *a.flags]
     if a.resume:
         cmd += ["--resume", a.resume]
+    if holdout_dir is not None and a.eval_holdout:
+        cmd += ["--eval-holdout", "--holdout-bank", str(a.holdout_bank),
+                "--save-holdout", holdout_dir]
     return cmd
+
+
+def eval_command(a: argparse.Namespace, ckpt: str, holdout_dir: str) -> list:
+    """``cli eval`` of a checkpoint on its live training bank and on a
+    held-out bank disjoint from it."""
+    return [sys.executable, "-m", "tetris_piclim_tpu_torch", "eval",
+            "-L", str(a.lines), "-M", str(a.moves), "--bank", str(a.bank),
+            *a.model_flags, "--checkpoint", ckpt, "--restore-bank", ckpt,
+            "--eval-holdout", "--holdout-bank", str(a.holdout_bank),
+            "--episodes", str(a.eval_episodes), "--seed", str(a.seed),
+            "--device", a.device, "--save-holdout", holdout_dir]
 
 
 def read_rows(text: str, offset: int) -> list[dict]:
@@ -161,12 +212,20 @@ def read_rows(text: str, offset: int) -> list[dict]:
 
 def read_reference(path: str, num_envs: int) -> dict:
     """The JAX run's rows: a summary JSON as it is, or a ``train`` log's
-    chunk rows (which carry no greedy win rate)."""
+    chunk rows and its last ``{"final_eval": ...}`` line (the greedy win
+    rate on the training bank and, with ``--eval-holdout``, the held-out
+    ones), under ``final_eval``; a log without one has no greedy win rate."""
     text = Path(path).read_text()
     if path.endswith(".json"):
         return json.loads(text)
-    return {"num_envs": num_envs, "final_greedy_win_rate": None,
-            "history": read_rows(text, 0)}
+    final = None
+    for line in text.splitlines():
+        if line.startswith("{") and '"final_eval"' in line:
+            final = json.loads(line)["final_eval"]
+    return {"num_envs": num_envs, "history": read_rows(text, 0),
+            "final_greedy_win_rate": None if final is None
+            else final["train_bank"]["win_rate"],
+            "final_eval": final}
 
 
 def read_curve(out: Path, num_envs: int) -> list[dict]:
@@ -182,9 +241,36 @@ def read_curve(out: Path, num_envs: int) -> list[dict]:
     return [curve[s] for s in sorted(curve)]
 
 
+def held_out_block(reading: Optional[dict], ref: dict) -> dict:
+    """The port's held-out reading (``OUT/holdout_<step>.json``, None if
+    there is none yet) beside JAX's ``final_eval``, each win rate inside or
+    outside its band (None where either side is missing)."""
+    port = reading["eval"] if reading else {}
+    jax = ref.get("final_eval") or {}
+    rows = {}
+    for name, (key, width) in HELD_OUT.items():
+        ev = port.get(key) or (port.get("bank") if name == "train_bank" else None)
+        p = None if ev is None else ev["win_rate"]
+        j = jax.get(key, {}).get("win_rate")
+        rows[name] = {"port": p, "jax": j, "band": width,
+                      "inside": None if p is None or j is None else abs(p - j) <= width}
+    verdicts = [r["inside"] for r in rows.values()]
+    holdout = port.get("holdout", {})
+    return {"port_step": reading["step"] if reading else None,
+            "jax_step": max((int(r["step"]) for r in ref["history"]), default=None),
+            "episodes": holdout.get("episodes"), "rows": rows,
+            "families": {"port": holdout.get("families"),
+                         "jax": jax.get("holdout", {}).get("families")},
+            "build": holdout.get("build"),
+            "inside": None if None in verdicts else all(verdicts)}
+
+
 def compare(curve: list[dict], ref: dict, band: float, band_steps: list[int],
-            greedy) -> dict:
-    """The port's rows beside the JAX run's (matched by step), and the band."""
+            greedy, held_out: Optional[dict] = None) -> dict:
+    """The port's rows beside the JAX run's (matched by step), the band, and
+    the held-out block (``held_out`` is the port's newest reading). The
+    greedy win rate is held to JAX's only once the curve has reached the
+    JAX run's last step."""
     jax_rows = {int(r["step"]): r for r in ref["history"]}
     rows = []
     for r in curve:
@@ -206,7 +292,8 @@ def compare(curve: list[dict], ref: dict, band: float, band_steps: list[int],
                        "inside": None if port_wr is None  # not reached yet
                        else abs(port_wr - jax_wr) <= band})
     jax_greedy = ref["final_greedy_win_rate"]
-    if jax_greedy is None:  # nothing to hold the greedy win rate to
+    reached = bool(curve) and curve[-1]["step"] >= max(jax_rows)
+    if jax_greedy is None or not reached:  # nothing to hold it to yet
         greedy_ok = None
     else:
         greedy_ok = greedy is not None and abs(greedy - jax_greedy) <= band
@@ -217,7 +304,16 @@ def compare(curve: list[dict], ref: dict, band: float, band_steps: list[int],
                                 "inside": greedy_ok},
                      "first_row_outside": first_out,
                      "inside": greedy_ok is not False and all(
-                         c["inside"] for c in checks)}}
+                         c["inside"] for c in checks)},
+            "held_out": held_out_block(held_out, ref)}
+
+
+def boundaries(curve: list[dict], starts: list[int], log_every: int) -> list[dict]:
+    """The training win rates from one chunk before each resume to two
+    after it: a step in the curve there would be the resume's doing."""
+    wr = {r["step"]: r["win_rate"] for r in curve}
+    return [{"step": s, "win_rates": [wr.get(s + k * log_every) for k in (-1, 0, 1, 2)]}
+            for s in starts if s > 0]
 
 
 def card() -> str:
@@ -236,51 +332,112 @@ def keep_newest_checkpoint(ckpt: Path) -> None:
             shutil.rmtree(old)
 
 
+def run_logged(cmd: list, log: Path, timeout) -> tuple[int, str]:
+    """Run ``cmd`` from the repo's root with its stderr in ``log``; its
+    exit code (124 if ``timeout`` stopped it) and its stdout."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    with open(log, "w") as err:
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=err, text=True, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return 124, ""  # the process is killed; its rows so far count
+    if proc.returncode:
+        sys.stderr.write(log.read_text()[-4000:])
+    return proc.returncode, proc.stdout
+
+
+def last_json(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def host_load() -> dict:
+    """The host's 1/5/15-minute load averages and its cores: the eager
+    trainer's rate moves with them."""
+    return {"loadavg": list(os.getloadavg()), "cpus": os.cpu_count()}
+
+
+def summarize(a: argparse.Namespace, out: Path) -> dict:
+    """The whole run as OUT holds it: every segment's rows, records and
+    rates, the band, and the newest held-out reading."""
+    ref = read_reference(a.reference, a.num_envs)
+    curve = read_curve(out, a.num_envs)
+    segments = []
+    for path in sorted(out.glob("segment_*.json"),
+                       key=lambda p: int(p.stem.split("_")[1])):
+        seg = json.loads(path.read_text())
+        seg_rows = [r for r in curve
+                    if seg["first_step"] < r["step"] <= seg["stop_step"]]
+        trained_s = sum(a.log_every * a.num_envs / r["sps"] for r in seg_rows)
+        seg["env_steps_per_s"] = (len(seg_rows) * a.log_every * a.num_envs / trained_s
+                                  if trained_s else None)
+        seg["last_step"] = seg_rows[-1]["step"] if seg_rows else seg["first_step"]
+        segments.append(seg)
+    readings = sorted((int(m.group(1)), p) for p in out.glob("holdout_*.json")
+                      if (m := _HOLDOUT.match(p.name)))
+    reading = json.loads(readings[-1][1].read_text()) if readings else None
+    greedy = segments[-1].get("greedy") if segments else None
+    band_steps = [int(s) for s in a.band_steps.split(",")]
+    res = {"tool": "learning_check", "recipe": a.recipe, "device": a.device,
+           "card": segments[-1]["card"] if segments else None,
+           "actor_fusion": a.actor_fusion, "seed": a.seed,
+           "task": f"L={a.lines},M={a.moves}", "num_envs": a.num_envs,
+           "bank": a.bank, "train_flags": a.model_flags + a.flags, "steps": a.steps,
+           "last_step": curve[-1]["step"] if curve else 0,
+           "total_env_steps": a.steps * a.num_envs,
+           "eval_episodes": a.eval_episodes,
+           "holdout_bank": a.holdout_bank if a.eval_holdout else None,
+           "reference": os.path.relpath(a.reference, ROOT)}
+    res.update(compare(curve, ref, a.band, band_steps, greedy, reading))
+    trained_s = sum(a.log_every * a.num_envs / r["sps"] for r in curve)
+    res["env_steps_per_s"] = (len(curve) * a.log_every * a.num_envs / trained_s
+                              if trained_s else None)
+    res["wall_s"] = sum(seg["wall_s"] for seg in segments)
+    res["segments"] = segments
+    res["boundaries"] = boundaries(curve, [seg["first_step"] for seg in segments],
+                                   a.log_every)
+    res["held_out_readings"] = [json.loads(p.read_text()) for _, p in readings]
+    return res
+
+
 def main(argv=None) -> int:
     a = parse(argv)
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)
-    ref = read_reference(a.reference, a.num_envs)
-    band_steps = [int(s) for s in a.band_steps.split(",")]
     start = resume_step(a.resume) if a.resume else 0
-    stop = min(a.stop_at or a.steps, a.steps)
-    if stop <= start:
-        raise SystemExit(f"the checkpoint is at step {start}; this call stops at {stop}")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
-    seg = out / f"segment_{start}.log"
     t0 = time.perf_counter()
-    greedy, rc = None, 0
-    with open(seg, "w") as err:
-        try:
-            proc = subprocess.run(train_command(a, stop - start, str(out / "ckpt")),
-                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                  stderr=err, text=True, timeout=a.timeout)
-        except subprocess.TimeoutExpired:
-            rc = 124  # the train process is killed; its rows so far count
-    wall = time.perf_counter() - t0
-    keep_newest_checkpoint(out / "ckpt")
-    if not rc:
-        if proc.returncode:
-            sys.stderr.write(seg.read_text()[-4000:])
-            return proc.returncode
-        greedy = json.loads(proc.stdout.strip().splitlines()[-1])["train_bank"]["win_rate"]
-    curve = read_curve(out, a.num_envs)
-    res = {"tool": "learning_check", "recipe": a.recipe, "device": a.device,
-           "card": card() if a.device == "cuda" else None,
-           "actor_fusion": a.actor_fusion, "seed": a.seed,
-           "task": f"L={a.lines},M={a.moves}", "num_envs": a.num_envs,
-           "bank": a.bank, "train_flags": a.flags, "steps": a.steps,
-           "first_step": start, "stop_step": stop, "timed_out": bool(rc),
-           "total_env_steps": a.steps * a.num_envs,
-           "eval_episodes": a.eval_episodes,
-           "reference": os.path.relpath(a.reference, ROOT)}
-    res.update(compare(curve, ref, a.band, band_steps, greedy))
-    trained_s = sum(a.log_every * a.num_envs / r["sps"] for r in curve)
-    res["env_steps_per_s"] = (len(curve) * a.log_every * a.num_envs / trained_s
-                              if trained_s else None)
-    res["wall_s"] = wall
-    line = json.dumps(res)
+    if a.holdout_only:
+        if not a.resume:
+            raise SystemExit("--holdout-only reads the --resume checkpoint")
+        rc, stdout = run_logged(eval_command(a, a.resume, str(out / f"holdout_{start}")),
+                                out / f"holdout_{start}.log", a.timeout)
+    else:
+        stop = min(a.stop_at or a.steps, a.steps)
+        if stop <= start:
+            raise SystemExit(f"the checkpoint is at step {start}; this call stops at {stop}")
+        load = host_load()
+        final = str(out / f"holdout_{stop}") if stop == a.steps else None
+        rc, stdout = run_logged(train_command(a, stop - start, str(out / "ckpt"), final),
+                                out / f"segment_{start}.log", a.timeout)
+        keep_newest_checkpoint(out / "ckpt")
+    if rc not in (0, 124):
+        return rc
+    card_name = card() if a.device == "cuda" else None
+    ev = last_json(stdout) if rc == 0 else {}
+    if not a.holdout_only:
+        seg = {"first_step": start, "stop_step": stop, "timed_out": rc == 124,
+               "wall_s": time.perf_counter() - t0, "card": card_name,
+               "load_before": load, "load_after": host_load(),
+               "greedy": ev.get("train_bank", {}).get("win_rate"),
+               "eval_episodes": a.eval_episodes}
+        (out / f"segment_{start}.json").write_text(json.dumps(seg) + "\n")
+        start = stop
+    if "holdout" in ev:
+        (out / f"holdout_{start}.json").write_text(json.dumps(
+            {"step": start, "source": "eval" if a.holdout_only else "train",
+             "card": card_name, "wall_s": time.perf_counter() - t0, "eval": ev}) + "\n")
+    line = json.dumps(summarize(a, out))
     (out / "result.json").write_text(line + "\n")
     print(line, flush=True)
     return rc
