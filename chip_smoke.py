@@ -88,7 +88,18 @@ drives the port's two paths through the entry points a user calls:
     the training bank reported), and the greedy episode of each of 256
     held-out rows on the card against the CPU, TF32 off: every episode
     that ends otherwise has a top-two Q gap under 1e-3 on its way; all in
-    under 60 s, with no DFS (the rows are carried).
+    under 60 s, with no DFS (the rows are carried);
+20. the generators on explicit draws: (a) the device carver at the
+    flagship bank's shape (n=4096, L=5/M=25, JAX's default ``max_iters``)
+    on draws made on the CPU from a seeded generator, card against CPU word
+    for word in boards, pieces, rotations, locations and n_moves, every row
+    done and replayed to WIN on the card; (b) the same with ``max_iters``
+    cut to 40, some rows done and some not; (c) the generator path on the
+    card as the bank calls it, timed per 4096 rows; (d) the host forward
+    pipeline ``generate_batch(2, 20, 0, 100)`` on a spawn-context process
+    pool against the thread pool (the same games; both wall times; the
+    spawned workers re-import this script, torch included, and a watchdog
+    kills a hung pool after 240 s, which fails the phase).
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -110,6 +121,7 @@ import random
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -123,11 +135,12 @@ from tetris_piclim_tpu_torch.dqn.curriculum_train import CurriculumTrainer
 from tetris_piclim_tpu_torch.dqn.replay import ReplayBuffer
 from tetris_piclim_tpu_torch.dqn.train import DQNTrainer, adapt_share_v2
 from tetris_piclim_tpu_torch.gen import curriculum as cur_lib
-from tetris_piclim_tpu_torch.gen import device_forward
+from tetris_piclim_tpu_torch.gen import device_carver, device_forward
 from tetris_piclim_tpu_torch.gen.bank import (
     FAMILY_CARVE, FAMILY_FORWARD, ConfigBank, pack_host_rows, make_holdout_bank,
 )
 from tetris_piclim_tpu_torch.gen.carver import CarvingGenerator
+from tetris_piclim_tpu_torch.gen.pipeline import generate_batch
 from tetris_piclim_tpu_torch.models import convnet
 from tetris_piclim_tpu_torch.models.qnet import QNetwork
 from tetris_piclim_tpu_torch.ops import _build
@@ -1906,6 +1919,137 @@ def phase_flagship_policy() -> dict:
             "near_tie_rows": int(near_tie.sum()), "total_s": total_s}
 
 
+CARVE_CUT = 40            # iterations: at L=5/M=25 about 40% of rows finish
+POOL_TIMEOUT_S = 240.0    # the host pools' wall time may not exceed this
+POOL_WORKERS = 8          # the card's host has 8 cores
+
+
+def carver_draws(n: int, M: int, iters: int, seed: int) -> tuple:
+    """The device carver's draws for ``iters`` iterations and the pad, made
+    on the CPU from a seeded generator (as JAX's loop and pad draw them)."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, 7, (iters, n), generator=g),
+            torch.randint(0, 4, (iters, n), generator=g),
+            torch.rand((iters, n), generator=g),
+            torch.randint(0, 7, (n, M + 1), generator=g).to(torch.int8))
+
+
+def carve_card_vs_cpu(n: int, L: int, M: int, max_iters, seed: int) -> dict:
+    """The carver on the card and on the CPU from the same draws: all five
+    fields word for word, and every done row's solution replays to WIN on
+    the card in its n_moves."""
+    iters = 24 * M + 512 if max_iters is None else max_iters
+    draws = carver_draws(n, M, iters, seed)
+    t0 = time.perf_counter()
+    cpu = device_carver.generate_batch_device(n, L, M, max_iters=max_iters,
+                                              draws=draws, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card_draws = tuple(d.to(DEV) for d in draws)
+    sync()
+    t0 = time.perf_counter()
+    card = device_carver.generate_batch_device(n, L, M, max_iters=max_iters,
+                                               draws=card_draws)
+    sync()
+    card_s = time.perf_counter() - t0
+    check(card.boards.device.type == DEV.type
+          and all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                  for f in card._fields),
+          f"carver max_iters={max_iters}: card = CPU word for word in "
+          f"{', '.join(card._fields)} (n={n}, L={L}/M={M})")
+    done = card.n_moves > 0
+    idx = done.nonzero()[:, 0]
+    st = replay_status(card.boards[idx], card.pieces[idx], card.rotations[idx],
+                       card.locations[idx], L, M)
+    check(bool((st.status == 1).all()) and bool((st.lines_cleared >= L).all())
+          and torch.equal(st.moves_used, card.n_moves[idx]),
+          f"all {idx.numel()} carved rows replay to WIN on the card in their n_moves")
+    return {"done": idx.numel(), "cpu_s": cpu_s, "card_s": card_s}
+
+
+def timed_pool(executor: str, L: int, M: int, seeds: int, workers: int):
+    """``generate_batch`` on one host pool, under a watchdog that kills the
+    pool's worker processes after POOL_TIMEOUT_S: a hung pool then raises
+    BrokenProcessPool, which fails the phase."""
+    def kill_children():
+        for child in multiprocessing.active_children():
+            child.kill()
+
+    watchdog = threading.Timer(POOL_TIMEOUT_S, kill_children)
+    watchdog.start()
+    try:
+        t0 = time.perf_counter()
+        games = generate_batch(L, M, 0, seeds, workers=workers, executor=executor)
+        wall_s = time.perf_counter() - t0
+    finally:
+        watchdog.cancel()
+    check(wall_s < POOL_TIMEOUT_S, f"{executor} pool ended in {wall_s:.2f} s")
+    return [(g.seed, g.board.tolist(), g.sequence) for g in games], wall_s
+
+
+def phase_generators() -> dict:
+    """(a) The device carver at the flagship bank's shape (n=4096,
+    L=5/M=25, JAX's default max_iters) on draws made on the CPU: card = CPU
+    word for word, every row done and replayed to WIN; (b) the same with
+    max_iters cut so that some rows end undone; (c) the generator path on
+    the card, as the bank calls it, timed per 4096 rows; (d) the host
+    forward pipeline's process pool against its thread pool."""
+    L, M, n = 5, 25, 4096
+    print(f"device carver: n={n}, L={L}/M={M}, draws made on the CPU, card vs CPU")
+    full = carve_card_vs_cpu(n, L, M, None, seed=20)
+    check(full["done"] == n, f"every row done at the default max_iters "
+          f"({full['done']} of {n})")
+    cut = carve_card_vs_cpu(n, L, M, CARVE_CUT, seed=21)
+    check(0 < cut["done"] < n, f"max_iters={CARVE_CUT}: {cut['done']} of {n} rows "
+          "done, the rest undone (n_moves 0)")
+
+    def bank_carve(seed):
+        return device_carver.generate_batch_device(
+            n, L, M, generator=torch.Generator(device=DEV).manual_seed(seed),
+            device=DEV)
+
+    bank_carve(0)
+    sync()
+    times = []
+    for seed in (1, 2, 3):
+        t0 = time.perf_counter()
+        b = bank_carve(seed)
+        sync()
+        times.append(time.perf_counter() - t0)
+        check(bool((b.n_moves > 0).all()), f"generator path, seed {seed}: "
+              f"all {n} rows done")
+    carve_ms = [t * 1e3 for t in times]
+    # the cut run never stops early (some rows stay undone): its time per
+    # iteration gives the default runs' loop lengths
+    iter_ms = cut["card_s"] * 1e3 / CARVE_CUT
+    print(f"  generator path {min(carve_ms):.1f} ms per {n} rows (best of 3; "
+          f"{', '.join(f'{t:.1f}' for t in carve_ms)}); draws path on the card "
+          f"{full['card_s'] * 1e3:.1f} ms, on the CPU {full['cpu_s'] * 1e3:.1f} ms; "
+          f"{iter_ms:.3f} ms per iteration on the card (max_iters={CARVE_CUT})")
+
+    pL, pM, seeds = 2, 20, 100
+    workers = min(POOL_WORKERS, os.cpu_count() or 1)
+    print(f"host pipeline: seeds 0-{seeds - 1} at L={pL}/M={pM}, thread and "
+          f"process pools of {workers} workers")
+    thread_games, thread_s = timed_pool("thread", pL, pM, seeds, workers)
+    process_games, process_s = timed_pool("process", pL, pM, seeds, workers)
+    check(len(thread_games) > 0 and process_games == thread_games,
+          f"the process pool proves the thread pool's {len(thread_games)} games "
+          "(seed, board, sequence)")
+    print(f"  thread {thread_s:.2f} s ({len(thread_games) / thread_s:.2f} games/s), "
+          f"process {process_s:.2f} s ({len(process_games) / process_s:.2f} games/s) "
+          f"on {os.cpu_count()} host cores")
+    return {"carve_n": n, "carve_L": L, "carve_M": M,
+            "carve_generator_ms": carve_ms, "carve_draws_card_ms": full["card_s"] * 1e3,
+            "carve_draws_cpu_ms": full["cpu_s"] * 1e3, "cut_max_iters": CARVE_CUT,
+            "cut_done": cut["done"], "cut_draws_card_ms": cut["card_s"] * 1e3,
+            "card_ms_per_iteration": iter_ms, "pipeline_L": pL, "pipeline_M": pM,
+            "pipeline_seeds": seeds, "workers": workers,
+            "host_cores": os.cpu_count(), "winnable": len(thread_games),
+            "thread_s": thread_s, "process_s": process_s,
+            "thread_games_per_s": len(thread_games) / thread_s,
+            "process_games_per_s": len(process_games) / process_s}
+
+
 def multigpu_worker(kind: str, out: str) -> int:
     res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo,
            "refresh2": worker_mesh_refresh,
@@ -1983,6 +2127,7 @@ def main() -> int:
     extras = phase_mesh_extras()
     tpu = phase_tpu_policy()
     flag_policy = phase_flagship_policy()
+    generators = phase_generators()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -2035,6 +2180,7 @@ def main() -> int:
     print(json.dumps({"mesh_refresh_submesh_entry": extras, "card": smi}))
     print(json.dumps({"tpu_policy": tpu, "card": smi}))
     print(json.dumps({"flagship_policy": flag_policy, "card": smi}))
+    print(json.dumps({"generators": generators, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,12 +1,15 @@
 """The port's public names against the JAX package's ``__init__`` files and
 against every JAX module that has a counterpart module in the port (each
-public module-level name and each public method of its classes), their
+public module-level name and each public method of its classes), the
+parameters of every callable the two share (names and defaults), their
 lazy loading, and the helpers that came with them
 (``generate_board_and_sequence``, ``to_board``, ``step_batch`` /
 ``observe_batch``, ``init_qnet``), each against its JAX counterpart."""
 
 import ast
+import builtins
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -105,6 +108,172 @@ def test_jax_module_names_resolve_in_counterpart(rel):
     missing += [f"{n}.{m}" for n, methods in names.items() if n not in skip
                 and hasattr(mod, n) for m in methods if not hasattr(getattr(mod, n), m)]
     assert not missing, f"{rel}: {missing}"
+
+
+# JAX parameters that no counterpart takes, and why
+PARAMS_NOT_PORTED_ANYWHERE = {
+    # a JAX PRNG key: the port draws from a torch.Generator or takes the
+    # draws themselves (``draws=``)
+    "key",
+    # flax parameter trees and their apply function: the port's nets are
+    # nn.Modules that carry their weights
+    "params", "apply_fn", "target_params",
+    # optax's transformation and its state: the port's optimizer is an
+    # object (AmsgradW / AmsgradBf16) that holds its moments
+    "optimizer", "opt_state",
+    # the functional demo replay's pytree: the port passes the demo
+    # ReplayBuffer (``demo=``)
+    "demo_rpl",
+}
+# per JAX module and callable, parameters its counterpart does not take,
+# and why
+PARAMS_NOT_PORTED = {
+    # Pallas tiling and interpret mode: the CUDA kernels pick their own
+    # launch shape and have no interpret mode; the actor reads its head's
+    # width from the net
+    "ops/pallas_actor.py": {"actor_rollout_fused": {"tile", "interpret", "head_dim"}},
+    "ops/pallas_rollout.py": {"rollout_fused": {"tile", "interpret"}},
+    # JAX mesh axes and pytrees: the port's mesh is torch.distributed ranks,
+    # one batch axis, and its states are modules and tensors
+    "parallel/mesh.py": {"replicate": {"tree"}, "batch_sharding": {"axis"},
+                         "shard_train_state": {"axis"}},
+    # orbax restores into a template pytree; the port loads into the
+    # TrainState it is given (``state``)
+    "utils/checkpoint.py": {"restore_train_state": {"template"}},
+    # an XLA compiled executable: the port counts the FLOPs of a call
+    # (``fn, *args``)
+    "utils/mfu.py": {"mfu": {"compiled"}},
+    # a multiprocessing queue shared by all producers: the port gives each
+    # producer a pipe of its own
+    "gen/_producers.py": {"carve_producer": {"queue"}, "forward_producer": {"queue"}},
+}
+# defaults the port does not keep, and why: its entry points run on the card
+# (``device='cuda'``) unless the caller asks for the CPU, where JAX's None
+# means its default backend
+DEFAULTS_NOT_KEPT = {
+    "gen/bank.py": {"ConfigBank.__init__": {"device"}, "make_holdout_bank": {"device"}},
+    "utils/checkpoint.py": {"restore_bank": {"device"}},
+}
+
+
+def jax_module_signatures(rel: str) -> dict[str, list[tuple[str, object]]]:
+    """The parameters of every public function of a JAX module and of every
+    public method (``__init__`` included) of its public classes, each as
+    (name, default source or None), read from the source; properties,
+    ``self``/``cls`` and ``*args``/``**kwargs`` are left out."""
+    tree = ast.parse((ROOT / "tetris_piclim_tpu" / rel).read_text())
+
+    def params(fn):
+        a = fn.args
+        pos = a.posonlyargs + a.args
+        defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+        out = list(zip(pos, defaults)) + list(zip(a.kwonlyargs, a.kw_defaults))
+        return [(p.arg, None if d is None else ast.unparse(d))
+                for p, d in out if p.arg not in ("self", "cls")]
+
+    def is_property(fn):
+        return any(isinstance(d, ast.Name) and d.id == "property"
+                   or isinstance(d, ast.Attribute) and d.attr in ("setter", "getter")
+                   for d in fn.decorator_list)
+
+    sigs = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            sigs[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for fn in node.body:
+                if (isinstance(fn, ast.FunctionDef) and not is_property(fn)
+                        and (fn.name == "__init__" or not fn.name.startswith("_"))):
+                    sigs[f"{node.name}.{fn.name}"] = params(fn)
+    return sigs
+
+
+def jax_module_literals(rel: str) -> dict:
+    """The module-level constants of a JAX module that are plain literals."""
+    out = {}
+    for node in ast.parse((ROOT / "tetris_piclim_tpu" / rel).read_text()).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            try:
+                out[node.targets[0].id] = ast.literal_eval(node.value)
+            except ValueError:
+                pass
+    return out
+
+
+def _default_value(src: str, jax_literals: dict, namespace: dict):
+    """A JAX default from its source: a literal, a literal constant of the
+    JAX module, else the expression read in the port module's namespace
+    (its own copies of the constants it imports, such as BOARD_H)."""
+    try:
+        return ast.literal_eval(src)
+    except ValueError:
+        if src in jax_literals:
+            return jax_literals[src]
+        return eval(src, {**vars(builtins), **namespace})  # noqa: S307
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_jax_parameters_resolve_in_counterpart(rel):
+    """Every parameter of every public callable that a JAX module and its
+    counterpart share is a parameter of the port's callable, with JAX's
+    default where the port keeps the parameter; the only exceptions are
+    the ones listed above, each with its reason, and each is still needed."""
+    port_rel = MODULE_COUNTERPARTS.get(rel, rel)
+    mod = importlib.import_module(
+        "tetris_piclim_tpu_torch." + port_rel[:-3].replace("/", "."))
+    not_ported = PARAMS_NOT_PORTED.get(rel, {})
+    not_kept = DEFAULTS_NOT_KEPT.get(rel, {})
+    literals = jax_module_literals(rel)
+    bad, used = [], set()
+    for name, params in jax_module_signatures(rel).items():
+        obj = mod
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        if obj is None:
+            continue  # not shared: test_jax_module_names_resolve_in_counterpart
+        port = inspect.signature(obj).parameters
+        for p, default in params:
+            if p not in port:
+                if p in not_ported.get(name, ()):
+                    used.add((name, p))
+                elif p not in PARAMS_NOT_PORTED_ANYWHERE:
+                    bad.append(f"{name}: no parameter {p!r}")
+                continue
+            if default is None:
+                continue
+            if p in not_kept.get(name, ()):
+                used.add((name, p))
+                assert port[p].default == "cuda", (name, p)
+                continue
+            want = _default_value(default, literals, vars(mod))
+            got = port[p].default
+            if got is inspect.Parameter.empty:
+                bad.append(f"{name}: {p!r} has no default, JAX's is {default}")
+            elif got != want or type(got) is not type(want):
+                bad.append(f"{name}: {p}={got!r}, JAX's is {default}")
+    assert not bad, f"{rel}: {bad}"
+    listed = {(n, p) for d in (not_ported, not_kept) for n, ps in d.items() for p in ps}
+    assert listed <= used, f"{rel}: listed but not needed: {listed - used}"
+
+
+def test_jax_keywords_reach_the_port():
+    """The keywords that differed once: ``engine.step(location=)`` and
+    ``bitboard.from_env_state(env_state=)`` give what JAX's give."""
+    rng = np.random.default_rng(4)
+    n, M = 32, 8
+    boards = adversarial_boards(rng, n)
+    pieces = rng.integers(0, 7, (n, M + 1)).astype(np.int8)
+    rot = rng.integers(0, 4, n).astype(np.int32)
+    loc = rng.integers(-2, 12, n).astype(np.int32)
+    ja = jengine.make_state_batch(jnp.asarray(boards), jnp.asarray(pieces), 2, M)
+    ta = engine.make_state_batch(torch.as_tensor(boards), torch.as_tensor(pieces), 2, M)
+    jr = jengine.step_batch(ja, rotations=jnp.asarray(rot), location=jnp.asarray(loc))
+    tr = engine.step(ta, rotations=torch.as_tensor(rot), location=torch.as_tensor(loc))
+    np.testing.assert_array_equal(tr.state.board.numpy(), np.asarray(jr.state.board))
+    np.testing.assert_array_equal(tr.lines_delta.numpy(), np.asarray(jr.lines_delta))
+    assert_states_equal(tbb.from_env_state(env_state=tr.state),
+                        jbb.from_env_state(env_state=jr.state), "from_env_state")
 
 
 def jax_init_names(sub: str) -> set[str]:

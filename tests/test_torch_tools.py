@@ -44,14 +44,29 @@ def test_actor_decomp_small(monkeypatch):
     assert res["scan"] == 2 and res["device"] == "cpu"
 
 
+_PIPELINE_BENCH = """
+import json, sys
+sys.path.insert(0, "tools")
+import generation_bench
+print(json.dumps(generation_bench.bench_forward_pipeline(L=1, M=8, seeds=3, workers=2)))
+"""
+
+
 def test_generation_bench_small():
+    """The host pipeline's bench spawns its process pool: run in a
+    subprocess under a timeout."""
     cpu = torch.device("cpu")
     host = generation_bench.bench_host_carver(L=2, M=8, n=3)
     dev = generation_bench.bench_device_carver(cpu, L=2, M=8, n=16)
-    fwd = generation_bench.bench_forward_pipeline(L=1, M=8, seeds=3)
+    out = _tool(["-c", _PIPELINE_BENCH], timeout=120)
+    assert out.returncode == 0, out.stderr
+    fwd = json.loads(out.stdout.strip().splitlines()[-1])
     beam = generation_bench.bench_device_forward(cpu, L=1, M=8, n=16, beams=(1, 2))
     assert host["value"] > 0 and dev["converged"] == 16
-    assert 0 <= fwd["winnable"] <= 3 and fwd["value"] == fwd["thread"]
+    assert 0 <= fwd["winnable"] <= 3 and fwd["workers"] == 2
+    assert fwd["value"] == max(fwd["thread"], fwd["process"])
+    assert fwd["winner"] in ("thread", "process") and fwd["process_batch_s"] > 0
+    assert generation_bench.parse(["--workers", "3"]).workers == 3
     assert {"bw1_yield", "bw2_winnable_per_s", "bw2_batch_ms"} <= set(beam)
     assert beam["value"] == beam["bw2_winnable_per_s"]
 

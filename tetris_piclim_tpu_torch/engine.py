@@ -115,7 +115,7 @@ def _piece_at(state: EnvState, offset: int = 0) -> torch.Tensor:
 
 
 def step(state: EnvState, rotations: torch.Tensor,
-         locations: torch.Tensor) -> StepResult:
+         location: torch.Tensor) -> StepResult:
     """One hard-drop move per env (reference game/tetris.py:354-433)."""
     n, dev = state.board.shape[0], state.board.device
     masks, width, height, rtopo_t, nrot = _tables(dev)
@@ -123,7 +123,7 @@ def step(state: EnvState, rotations: torch.Tensor,
     r = torch.remainder(rotations.long(), nrot[piece])
     mask = masks[piece, r]                     # [N, 16] 4x4, top-left anchored
     w, h = width[piece, r], height[piece, r]
-    loc = torch.minimum(locations.long().clamp(min=0), W - w)
+    loc = torch.minimum(location.long().clamp(min=0), W - w)
 
     # first filled row of each of the 4 box columns, 20 when empty
     box = torch.arange(4, device=dev)

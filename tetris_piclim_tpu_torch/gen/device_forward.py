@@ -54,7 +54,6 @@ _NEG = -(2 ** 30)
 _MASK32 = 0xFFFFFFFF
 _HASH_MUL = 1_000_003
 _CHECK_EVERY = 4  # moves between host checks of the all-decided condition
-_PREFILL_ITERS = 96  # bounds the prefill loop only: boards stop themselves
 
 
 class ForwardBatch(NamedTuple):
@@ -93,6 +92,7 @@ def _full_rows(locked: torch.Tensor) -> torch.Tensor:
 def prefill_boards_device(
     n: int,
     initial_height_max: int = 4,
+    max_iters: int = 96,
     *,
     draws: Optional[tuple] = None,
     generator: Optional[torch.Generator] = None,
@@ -102,23 +102,28 @@ def prefill_boards_device(
 
     Each iteration drops one (piece, rotation, column) on every board that
     has not stopped; a drop whose top lands above the cap stops that board
-    and is not placed; full rows clear. ``draws=(piece, rot_raw, u)``, each
+    and is not placed; full rows clear. ``max_iters`` only bounds the loop:
+    boards stop themselves. ``draws=(piece, rot_raw, u)``, each
     ``[iterations, n]`` (ints in [0, 7) and [0, 4), float32 in [0, 1)), are
-    the per-iteration draws; without them ``_PREFILL_ITERS`` iterations'
-    worth come from ``generator``."""
+    the per-iteration draws and must cover ``max_iters`` iterations; without
+    them ``max_iters`` iterations' worth come from ``generator``."""
     if draws is None:
-        shape = (_PREFILL_ITERS, n)
+        shape = (max_iters, n)
         draws = (
             torch.randint(0, 7, shape, generator=generator, device=device),
             torch.randint(0, 4, shape, generator=generator, device=device),
             torch.rand(shape, generator=generator, device=device),
         )
     pieces, rots, us = (torch.as_tensor(d, device=device) for d in draws)
+    have = min(d.shape[0] for d in (pieces, rots, us))
+    if have < max_iters:
+        raise ValueError(f"draws cover {have} prefill iterations, fewer than "
+                         f"max_iters={max_iters}")
     dev = pieces.device
     t = device_tables(dev)
     cols = torch.zeros((n, W), dtype=torch.int32, device=dev)
     stopped = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for it in range(pieces.shape[0]):
+    for it in range(max_iters):
         if it % 16 == 0 and it and bool(stopped.all()):
             break  # stopped boards never change again
         piece = pieces[it].long()

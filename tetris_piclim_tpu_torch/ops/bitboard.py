@@ -128,10 +128,10 @@ def unpack_board(cols: torch.Tensor) -> torch.Tensor:
     return ((cols.unsqueeze(-2) >> shifts) & 1).bool()
 
 
-def from_env_state(state) -> PackedState:
+def from_env_state(env_state) -> PackedState:
     """An array-engine ``engine.EnvState`` batch as a PackedState (the
     replay stores packed states whatever the trainer's backend)."""
-    return PackedState(pack_board(state.board), *state[1:])
+    return PackedState(pack_board(env_state.board), *env_state[1:])
 
 
 def make_state_batch(boards, pieces, lines_goal, move_limit) -> PackedState:

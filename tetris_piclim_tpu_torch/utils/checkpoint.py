@@ -35,6 +35,7 @@ from ..gen.bank import ConfigBank
 from ..models.qnet import params_from_flax
 from ..ops.bitboard import pack_board, unpack_board
 from ..parallel.mesh import all_gather, barrier, batch_sharding
+from .device import resolve_device
 
 
 def save_train_state(path: str, state) -> str:
@@ -136,10 +137,10 @@ def save_bank(path: str, bank: ConfigBank) -> str:
     return out
 
 
-def restore_bank(path: str, device) -> ConfigBank:
+def restore_bank(path: str, device="cuda") -> ConfigBank:
     """A bank from :func:`save_bank` output (the directory or the file); a
     file written without ``family`` gives carve-family rows."""
-    sd = _load(path, "bank.pt", device)
+    sd = _load(path, "bank.pt", resolve_device(device))
     family = sd.get("family")
     return ConfigBank.from_rows(
         sd["L"], sd["M"], sd["cols"], sd["pieces"],

@@ -1,6 +1,6 @@
 """Generation throughput, the harness of ``benchmarks/bench_generation.py``.
 
-    python3 tools/generation_bench.py
+    python3 tools/generation_bench.py [--workers N]
 
 Prints one JSON line per benchmark:
 
@@ -9,9 +9,12 @@ Prints one JSON line per benchmark:
   (``gen/device_carver.py``, 4096 rows, best of 3 after a warm-up, with the
   count that converged);
 * winnable games/s of the host forward generate + prove pipeline
-  (``gen/pipeline.py::generate_batch``, seeds 0-99 at L=2/M=20). The port's
-  pipeline runs a thread pool only, so the JAX harness's process-pool
-  variant has no counterpart here;
+  (``gen/pipeline.py::generate_batch``, seeds 0-99 at L=2/M=20) on its
+  thread pool and on its spawn-context process pool, each of ``--workers``
+  workers (default: each executor's own), with the faster one and the
+  host's core count. The tool loads torch only
+  for the device benchmarks, so the spawned workers, which re-import it,
+  import no torch;
 * proven forward-family configs/s of the device generator and beam prover
   (``gen/device_forward.py``, n=1024, L=10/M=30) at beam widths 1, 4 and 8:
   the best rate of the (wins, time) pairs of 3 calls, the mean yield and
@@ -23,23 +26,23 @@ Device times are CUDA-synchronised (the device functions take a
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import random
 import sys
 import time
 from pathlib import Path
 
-import torch
-
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from tetris_piclim_tpu_torch.gen import device_carver, device_forward  # noqa: E402
 from tetris_piclim_tpu_torch.gen.carver import CarvingGenerator  # noqa: E402
 from tetris_piclim_tpu_torch.gen.pipeline import generate_batch  # noqa: E402
-from tetris_piclim_tpu_torch.utils.device import resolve_device  # noqa: E402
 
 
-def _sync(dev: torch.device) -> None:
+def _sync(dev) -> None:
+    import torch
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -55,7 +58,11 @@ def bench_host_carver(L=10, M=30, n=100) -> dict:
             "reference_1core": 21.0}  # BASELINE.md, L=10 M=30
 
 
-def bench_device_carver(dev: torch.device, L=10, M=30, n=4096) -> dict:
+def bench_device_carver(dev, L=10, M=30, n=4096) -> dict:
+    import torch
+
+    from tetris_piclim_tpu_torch.gen import device_carver
+
     def call(seed):
         return device_carver.generate_batch_device(
             n, L, M, generator=torch.Generator(device=dev).manual_seed(seed),
@@ -74,18 +81,35 @@ def bench_device_carver(dev: torch.device, L=10, M=30, n=4096) -> dict:
             "converged": int((b.n_moves > 0).sum()), "reference_1core": 21.0}
 
 
-def bench_forward_pipeline(L=2, M=20, seeds=100) -> dict:
-    t0 = time.perf_counter()
-    games = generate_batch(L, M, seed_start=0, seed_end=seeds)
-    dt = time.perf_counter() - t0
-    return {"bench": "forward_pipeline_winnable_per_s", "L": L, "M": M,
-            "reference_2core": 19.4,  # BASELINE.md
-            "thread": round(len(games) / dt, 2), "thread_batch_s": round(dt, 2),
-            "winnable": len(games), "value": round(len(games) / dt, 2)}
+def bench_forward_pipeline(L=2, M=20, seeds=100, workers=None) -> dict:
+    """The thread pool and the process pool on the same seed range: the
+    greedy DFS prover is recursive Python over tiny arrays, so threads
+    share the GIL, and processes pay their start-up and pickling."""
+    out = {"bench": "forward_pipeline_winnable_per_s", "L": L, "M": M,
+           "reference_2core": 19.4,  # BASELINE.md
+           "workers": workers, "host_cores": os.cpu_count()}
+    proved = {}
+    for ex in ("thread", "process"):
+        t0 = time.perf_counter()
+        games = generate_batch(L, M, seed_start=0, seed_end=seeds,
+                               workers=workers, executor=ex)
+        dt = time.perf_counter() - t0
+        out[ex] = round(len(games) / dt, 2)
+        out[f"{ex}_batch_s"] = round(dt, 2)
+        proved[ex] = [g.seed for g in games]
+    if proved["process"] != proved["thread"]:
+        raise AssertionError("the process pool proved other games than the threads")
+    out["winnable"] = len(proved["thread"])
+    out["value"] = max(out["thread"], out["process"])
+    out["winner"] = "thread" if out["thread"] >= out["process"] else "process"
+    return out
 
 
-def bench_device_forward(dev: torch.device, L=10, M=30, n=1024,
-                         beams=(1, 4, 8)) -> dict:
+def bench_device_forward(dev, L=10, M=30, n=1024, beams=(1, 4, 8)) -> dict:
+    import torch
+
+    from tetris_piclim_tpu_torch.gen import device_forward
+
     out = {"bench": "device_forward_winnable_per_s", "L": L, "M": M, "n": n,
            "device": dev.type}
     for bw in beams:
@@ -110,11 +134,22 @@ def bench_device_forward(dev: torch.device, L=10, M=30, n=1024,
     return out
 
 
-def main() -> int:
+def parse(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workers", type=int, default=None,
+                    help="workers of each host pool (default: the executor's)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    from tetris_piclim_tpu_torch.utils.device import resolve_device
+
+    args = parse(argv)
     dev = resolve_device("cuda")
-    for res in (bench_host_carver(), bench_device_carver(dev),
-                bench_forward_pipeline(), bench_device_forward(dev)):
-        print(json.dumps(res), flush=True)
+    for bench in (bench_host_carver, lambda: bench_device_carver(dev),
+                  lambda: bench_forward_pipeline(workers=args.workers),
+                  lambda: bench_device_forward(dev)):
+        print(json.dumps(bench()), flush=True)
     return 0
 
 
