@@ -1,8 +1,10 @@
-"""The flagship policy the port trained on the H100 (L=5/M=25, conv (32,64)
-+ dueling + joint; ``tools/learning_check.py --recipe flagship``), carried
-out of its checkpoint by ``tools/flagship_policy.py`` into
-``results/flagship_L5M25_h100_policy.npz`` with its training bank, its
-held-out rows and their recorded evaluation.
+"""The flagship policies the port trained on the H100 (L=5/M=25, conv (32,64)
++ dueling + joint): at 175k steps (``tools/learning_check.py --recipe
+flagship``, ``results/flagship_L5M25_h100_policy.npz``) and at 100k steps
+of one unbroken run (``--recipe flagship100k``,
+``results/flagship_L5M25_100k_h100_policy.npz``), each carried out of its
+checkpoint by ``tools/flagship_policy.py`` with its training bank, its
+held-out rows and their recorded evaluation. Every test runs on each file.
 
 The port's ``ConvQNetwork`` and the JAX package's flax conv net, given the
 same weights (the flax tree built here by inverting
@@ -28,17 +30,22 @@ from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
 
 torch.set_num_threads(1)
 
-POLICY = Path(__file__).resolve().parents[1] / "results" / "flagship_L5M25_h100_policy.npz"
+RESULTS = Path(__file__).resolve().parents[1] / "results"
+# each carried policy and the step its run stopped at
+POLICIES = {"175k": (RESULTS / "flagship_L5M25_h100_policy.npz", 175_000),
+            "100k": (RESULTS / "flagship_L5M25_100k_h100_policy.npz", 100_000)}
 Q_ATOL = 1e-4
 N_PARAMS = 1_681_321
 
 
-@pytest.fixture(scope="module")
-def carried():
-    pol = read_policy_npz(str(POLICY))
+@pytest.fixture(scope="module", params=sorted(POLICIES), ids=sorted(POLICIES))
+def carried(request):
+    path, step = POLICIES[request.param]
+    pol = read_policy_npz(str(path))
+    assert pol["meta"]["step"] == step
     net = tconv.ConvQNetwork(channels=(32, 64), dueling=True, joint=True)
     net.load_state_dict(pol["net"])
-    return pol, net.eval()
+    return pol, net.eval(), path
 
 
 def flax_tree(sd: dict) -> dict:
@@ -54,7 +61,7 @@ def flax_tree(sd: dict) -> dict:
 
 
 def test_carried_file_is_the_flagship_run(carried):
-    pol, net = carried
+    pol, net, _ = carried
     meta, banks = pol["meta"], pol["banks"]
     assert (meta["L"], meta["M"]) == (5, 25) and meta["step"] > 0
     assert meta["n_params"] == N_PARAMS == sum(v.numel() for v in pol["net"].values())
@@ -81,7 +88,7 @@ def test_flagship_q_matches_jax(carried):
     """64 held-out rows' observations through both packages' conv nets:
     Q within 1e-4, and the tree given to flax reads back to the carried
     state_dict exactly."""
-    pol, net = carried
+    pol, net, _ = carried
     tree = flax_tree(pol["net"])
     back = tconv.params_from_flax(tree, net)
     assert sorted(back) == sorted(pol["net"])
@@ -99,7 +106,7 @@ def test_flagship_q_matches_jax(carried):
 
 
 def test_holdout_rows_are_not_training_rows(carried):
-    pol, _ = carried
+    pol, _, _ = carried
     train, hold = pol["banks"]["train"], pol["banks"]["holdout"]
     keys = hold.row_keys()
     assert len(keys) == hold.capacity  # no row twice
@@ -109,12 +116,12 @@ def test_holdout_rows_are_not_training_rows(carried):
 def test_warm_start_reads_the_policy_npz(carried):
     """``DQNTrainer.warm_start`` (and so ``cli eval --checkpoint``) loads the
     carried online net into both of the trainer's nets."""
-    pol, _ = carried
+    pol, _, path = carried
     cfg = TrainConfig(env=EnvConfig(L=5, M=25), num_envs=8, bank_capacity=4096,
                       replay_capacity=256, seed=0)
     net = tconv.ConvQNetwork(channels=(32, 64), dueling=True, joint=True)
     tr = DQNTrainer(cfg, bank=pol["banks"]["train"], net=net, device="cpu")
-    tr.warm_start(str(POLICY))
+    tr.warm_start(str(path))
     for got in (tr.state.net, tr.state.target_net):
         for k, v in got.state_dict().items():
             assert torch.equal(v, pol["net"][k])

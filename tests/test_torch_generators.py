@@ -158,6 +158,24 @@ def test_carver_needs_a_source_of_draws():
         tc.generate_batch_device(8, 1, 8, device="cpu")
 
 
+def test_prefill_needs_a_source_of_draws():
+    """No draws and no generator: the prefill raises, as the carver does,
+    instead of drawing from torch's global generator on the CPU."""
+    with pytest.raises(ValueError):
+        tf.prefill_boards_device(8, 4)
+    with pytest.raises(ValueError):
+        tf.prefill_boards_device(8, 4, device="cpu")
+
+
+@pytest.mark.parametrize("n,cap,seed", sorted(PREFILL_DIGESTS))
+def test_prefill_device_comes_from_the_generator(n, cap, seed):
+    """Without ``device`` the prefill runs where its generator is, and its
+    boards are word for word those recorded at the parent."""
+    cols = tf.prefill_boards_device(n, cap, generator=torch.Generator().manual_seed(seed))
+    assert cols.device.type == "cpu" and cols.dtype == torch.int32
+    assert _digest([cols]) == PREFILL_DIGESTS[n, cap, seed]
+
+
 @pytest.mark.parametrize("k", [8, 96])
 def test_prefill_max_iters_matches_jax(k):
     n, cap = 64, 4

@@ -176,6 +176,9 @@ def cmd_train(args) -> int:
     from .utils.profiling import device_trace
 
     cfg = _config(args)
+    if args.continue_run and not args.resume:
+        print("--continue-run goes on from a --resume checkpoint", file=sys.stderr)
+        return 2
     height = _parse_height(args.device_height)
     if args.device_refresh == 0 and (args.adaptive_share or height[0] != height[1]):
         print("warning: --adaptive-share / --device-height H0:H1 have no "
@@ -205,7 +208,8 @@ def cmd_train(args) -> int:
                       device_height=height,
                       adaptive_share=args.adaptive_share,
                       adapt_every=args.adapt_every,
-                      adapt_rule=args.adapt_rule)
+                      adapt_rule=args.adapt_rule,
+                      continue_run=args.continue_run)
     if args.checkpoint:
         final = (f"{args.checkpoint}/final" if args.checkpoint_every > 0
                  else args.checkpoint)
@@ -486,6 +490,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "probe is below half the carve probe")
     p.add_argument("--resume", help="restore a training checkpoint and go on "
                                     "training (same config shape)")
+    p.add_argument("--continue-run", action="store_true",
+                   help="with --resume: go on as one unbroken run would (the "
+                        "chunk count and the refresh seeds carry on from the "
+                        "checkpoint's step; DQNTrainer.train(continue_run=True))")
     p.add_argument("--warm-start", help="load only the network weights of a "
                                         "checkpoint (same architecture)")
     p.add_argument("--log-file", help="JSONL metrics path")

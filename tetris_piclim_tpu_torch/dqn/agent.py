@@ -158,13 +158,23 @@ class AmsgradW:
         f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
         c1 = float(1.0 - f32(self.b1) ** self.count)
         c2 = float(1.0 - f32(self.b2) ** self.count)
-        for p, g, mu, nu, nu_max in zip(self.params, grads, self.mu, self.nu,
-                                        self.nu_max):
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
-            torch.maximum(nu_max, nu / c2, out=nu_max)
-            u = (mu / c1) / ((nu_max + self.eps_root).sqrt() + self.eps)
-            p.add_(u + self.wd * p, alpha=-self.lr)
+        # one multi-tensor op per line, each element through the float32
+        # operations of a loop over the tensors, in the same order. A tensor
+        # divided by a host scalar stays one op per tensor: on the card that
+        # op multiplies by the float32 reciprocal, where a foreach division
+        # would divide.
+        params, mu, nu, nu_max = self.params, self.mu, self.nu, self.nu_max
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(grads, grads), alpha=1.0 - self.b2)
+        torch._foreach_maximum_(nu_max, [v / c2 for v in nu])
+        denom = torch._foreach_add(nu_max, self.eps_root)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        u = torch._foreach_div([m / c1 for m in mu], denom)
+        torch._foreach_add_(u, torch._foreach_mul(params, self.wd))
+        torch._foreach_add_(params, u, alpha=-self.lr)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -239,8 +249,9 @@ def per_beta_schedule(step: int, cfg: DQNConfig, total_steps: int) -> float:
 @torch.no_grad()
 def polyak(target_net: nn.Module, net: nn.Module, tau: float) -> None:
     """target <- tau * online + (1 - tau) * target (TAU=0.005), in place."""
-    for t, p in zip(target_net.parameters(), net.parameters()):
-        t.mul_(1.0 - tau).add_(p * tau)
+    targets = list(target_net.parameters())
+    torch._foreach_mul_(targets, 1.0 - tau)
+    torch._foreach_add_(targets, torch._foreach_mul(list(net.parameters()), tau))
 
 
 def _all_reduce_update(mesh, params: list, aux: dict) -> None:

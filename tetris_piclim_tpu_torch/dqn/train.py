@@ -459,7 +459,8 @@ class DQNTrainer:
               device_beam_width: int = 8,
               device_height: Optional[tuple[int, int]] = None,
               adaptive_share: bool = False, adapt_every: int = 20,
-              adapt_episodes: int = 1024, adapt_rule: str = "v2") -> dict:
+              adapt_episodes: int = 1024, adapt_rule: str = "v2",
+              continue_run: bool = False) -> dict:
         """Run ``total_steps`` env steps in chunks of ``log_every``, logging
         one row per chunk. ``device_refresh_every=k`` regenerates the bank
         on the device every k chunks (fresh seed each time), inside the
@@ -490,6 +491,17 @@ class DQNTrainer:
         JAX trainer's order within a chunk: two for the probes, one for the
         bank refresh, one for the demo refresh.
 
+        ``continue_run=True``, after :meth:`restore_checkpoint`, goes on
+        with the run that the checkpoint stopped as one unbroken call would
+        have: the chunk count starts at ``global_step / log_every`` and the
+        seed stream skips the draws of the chunks before. Split at a chunk
+        boundary, such a run gives the bits of an unbroken one. It refuses
+        what a checkpoint does not carry: the adaptive share, the
+        demonstration buffer, the host producers, a height annealed over
+        this call's steps, PER's beta annealed over them, and a bank that
+        the first chunk would read as this process built it (the seed's
+        fill, where the run's last device refresh had replaced rows).
+
         On a mesh every rank calls this with the same arguments. A device
         bank or demo refresh runs on rank 0 and is broadcast; the probes
         run on every rank; the producers run on rank 0 alone, and rank 0's
@@ -503,6 +515,14 @@ class DQNTrainer:
         history = []
         bank_keys = np.random.default_rng(cfg.seed + 0xBA4E)
         draw = lambda: int(bank_keys.integers(2**31 - 1))  # noqa: E731
+        if continue_run:
+            chunk_i = self._continue_at(refresh_bank, device_refresh_every,
+                                        device_height, adaptive_share)
+            for _ in range((chunk_i - 1) // device_refresh_every
+                           if device_refresh_every and chunk_i else 0):
+                draw()  # the refreshes of chunks 1 .. chunk_i - 1
+            if cfg.checkpoint_every > 0:
+                since_ckpt = self.state.global_step % cfg.checkpoint_every
         share = float(device_forward_fraction)
         if adaptive_share:
             # fixed probe banks under their own seeds: not the holdout, not
@@ -610,6 +630,34 @@ class DQNTrainer:
         if refresh_bank and mesh is not None:
             shard_bank(mesh, self.bank)  # rows swapped in after the last chunk's read
         return {"history": history}
+
+    def _continue_at(self, refresh_bank: bool, device_refresh_every: int,
+                     device_height, adaptive_share: bool) -> int:
+        """The chunk count at which ``train(continue_run=True)`` goes on;
+        raises where the continued run could not be the unbroken one."""
+        cfg, step = self.cfg, self.state.global_step
+        refused = [name for name, on in (
+            ("the adaptive share", adaptive_share),
+            ("demonstrations", cfg.demo_every > 0),
+            ("the host producers (refresh_bank)", refresh_bank),
+            ("an annealed device height", device_height is not None
+             and device_height[0] != device_height[1]),
+            ("PER's beta annealed over the call's steps", cfg.dqn.prioritized
+             and cfg.dqn.per_beta_anneal and cfg.dqn.per_beta_steps <= 0)) if on]
+        if refused:
+            raise ValueError(f"continue_run cannot carry {', '.join(refused)} "
+                             "across a checkpoint")
+        if step % cfg.log_every:
+            raise ValueError(f"continue_run: step {step} is not a chunk boundary "
+                             f"(log_every {cfg.log_every})")
+        chunk_i = step // cfg.log_every
+        every = device_refresh_every
+        if every and chunk_i >= every and chunk_i % every:
+            raise ValueError(
+                f"continue_run: chunk {chunk_i} would read the bank a device "
+                f"refresh made before the checkpoint (refresh every {every} "
+                "chunks); resume at a refresh")
+        return chunk_i
 
     def _refresh_counts(self) -> tuple[int, dict]:
         """The producers' row writes and the bank's family counts, rank 0's

@@ -106,7 +106,12 @@ def prefill_boards_device(
     boards stop themselves. ``draws=(piece, rot_raw, u)``, each
     ``[iterations, n]`` (ints in [0, 7) and [0, 4), float32 in [0, 1)), are
     the per-iteration draws and must cover ``max_iters`` iterations; without
-    them ``max_iters`` iterations' worth come from ``generator``."""
+    them ``max_iters`` iterations' worth come from ``generator``.
+    ``device`` defaults to that of the draws, else of the generator."""
+    if draws is None and generator is None:
+        raise ValueError("prefill_boards_device needs a generator or draws")
+    if device is None:
+        device = draws[0].device if draws is not None else generator.device
     if draws is None:
         shape = (max_iters, n)
         draws = (

@@ -7,13 +7,16 @@ flagship`` run into one numpy file.
 (the train state and the live training bank) and a held-out reading of
 that checkpoint, ``OUT/holdout_<step>.json`` with its rows in
 ``OUT/holdout_<step>/`` (the newest unless ``--step``). Writes
-``results/flagship_L5M25_h100_policy.npz`` (``utils/checkpoint.py::
-save_policy_npz``): the online conv net's 1,681,321 float32 parameters
-under the port's ``state_dict`` names, the 4096 training-bank rows, the
-2048 held-out rows with their family labels, and under ``meta`` the task,
-the step, the net's widths and the recorded held-out evaluation (win
-rates in all, per family and on the training bank, family counts, the
-rows' provenance, the card). ``tests/test_torch_flagship_policy.py`` holds
+``--out``, by default ``results/flagship_L5M25_h100_policy.npz`` (the
+175k-step policy; the unbroken 100k-step run's goes to
+``results/flagship_L5M25_100k_h100_policy.npz``), with
+``utils/checkpoint.py::save_policy_npz``: the online conv net's 1,681,321
+float32 parameters under the port's ``state_dict`` names, the 4096
+training-bank rows, the 2048 held-out rows with their family labels, and
+under ``meta`` the task, the step, the net's widths and the recorded
+held-out evaluation (win rates in all, per family and on the training
+bank, family counts, the rows' provenance, the forward win rate split by
+provenance where the reading has it, the card). ``tests/test_torch_flagship_policy.py`` holds
 it against the JAX package's conv net, and ``chip_smoke.py`` phase 19
 evaluates it on the card; ``cli eval --checkpoint NPZ`` loads it. Runs on
 the CPU; prints one JSON line.
@@ -68,7 +71,8 @@ def main(argv=None) -> int:
     meta = {"L": train.L, "M": train.M, "step": step, "net": NET,
             "n_params": n_params, "updates_done": int(state["updates_done"]),
             "card": reading["card"], "reading_source": reading["source"],
-            "eval": reading["eval"]}
+            "eval": reading["eval"],
+            "forward_by_provenance": reading.get("forward_by_provenance")}
     save_policy_npz(a.out, state["net"], {"train": train, "holdout": holdout}, meta)
     back = read_policy_npz(a.out)
     assert all(torch.equal(back["net"][k], v.float()) for k, v in state["net"].items())

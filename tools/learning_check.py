@@ -1,9 +1,11 @@
 """The port's learning curve against a JAX package run's.
 
-    python3 tools/learning_check.py [--recipe l2|flagship] [--actor-fusion 8]
-        [--resume CKPT] [--stop-at STEP] [--out DIR]
+    python3 tools/learning_check.py [--recipe l2|flagship|flagship100k]
+        [--actor-fusion 8] [--resume CKPT] [--stop-at STEP] [--out DIR]
     python3 tools/learning_check.py --recipe flagship --holdout-only \
         --resume CKPT --out DIR
+    python3 tools/learning_check.py --recipe flagship100k --summarize-only \
+        --out DIR [--against RECORD]
 
 Runs ``python -m tetris_piclim_tpu_torch train`` with the flags of a JAX
 run and reads the JAX run's training win rates beside the port's.
@@ -32,6 +34,19 @@ carve and forward within 0.05, greedy on the training bank within 0.03
 (about five standard errors of 8192 episodes cycling 2048, 1024 and 1024
 fixed rows; JAX has one seed, so training noise comes on top).
 
+``--recipe flagship100k`` is the same flag set for 100k steps with a
+4096-episode evaluation on the training bank and no held-out evaluation in
+the run, as ``tools/round3e.sh`` stage 1 ran it (``results/train_r3_L5df.log``,
+whose 100 rows are the first 100 of the 500k run's). JAX read that run's
+held-out win rates afterwards, with ``cli eval`` on a 2048-row held-out bank
+and 8192 episodes (``results/eval_r3_L5df.json``); ``--holdout-only`` is that
+reading here. The band holds the training win rate at 25k / 50k / 75k /
+100k (0.100 / 0.396 / 0.520 / 0.579), and the ``held_out`` block the four
+rows above against the eval JSON's held-out win rates and the train log's
+``final_eval`` (the training bank). The eval JSON's own greedy win rate on
+a training bank (``"bank"``; the file does not say whether that bank was
+restored or filled anew) stands beside the port's, with no band.
+
 Either run checkpoints every ``--checkpoint-every`` steps (25k for ``l2``,
 10k for ``flagship``) into ``OUT/ckpt/step_<n>``, so a run can span several
 calls: ``--stop-at STEP`` ends this call at that step (the train process
@@ -41,9 +56,10 @@ restores the whole train state (weights, optimizer, replay ring, envs,
 generators); the device bank is filled anew from the seed, and a
 ``--device-refresh`` run draws its refresh seeds from the start of their
 stream again, so across a resume the bank's rows are not those of one
-unbroken run. No flag of the flagship recipe reads the total ``--steps``
-(each call passes ``cli train`` its own segment's length): epsilon decays
-by a constant, the forward height is fixed at 4 and PER is off.
+unbroken run (unless ``--continue-run``, below). No flag of the flagship
+recipe reads the total ``--steps`` (each call passes ``cli train`` its
+own segment's length): epsilon decays by a constant, the forward height
+is fixed at 4 and PER is off.
 
 The held-out evaluation runs only in the segment that ends at ``--steps``
 (``cli train --eval-holdout``). ``--holdout-only`` reads it from the
@@ -62,6 +78,30 @@ first step on), so a call cut at its time limit loses only the steps after
 its last checkpoint. After every call OUT keeps one checkpoint, the
 newest: the 131072-row replay ring, the weights and the optimizer moments,
 ~16 MB for the MLP and ~47 MB for the flagship's conv net.
+
+``--continue-run`` (with ``--resume``) passes ``cli train --continue-run``:
+the call goes on with the run as one unbroken call would have (the chunk
+count and the bank's refresh seeds carry on from the checkpoint's step),
+so a run cut at its time limit goes on from its last checkpoint with the
+bits of an unbroken run. A segment that starts before an earlier
+segment's last row logs those steps again; ``overlaps`` in the result says
+whether each such row is the same in both.
+
+``--against RECORD`` sets an earlier result JSON of this tool beside the
+run (under ``against``): the steps at which both have a row with the same
+training win rate and loss, the first step where they part, and each run's
+mean gap to JAX per ``--window`` steps. ``--summarize-only`` trains and
+evaluates nothing: it prints (and writes to ``OUT/result.json``) the run
+as OUT holds it.
+
+A held-out reading also splits the forward family by where its rows came
+from: ``make_holdout_bank`` lays out the host DFS solver's rows first, then
+the device beam prover's (``holdout.build`` counts each). The tool plays the
+reading's checkpoint on each part in turn, with the episodes and draws of
+``cli eval`` (``forward_by_provenance`` in ``OUT/holdout_<step>.json`` and in
+the ``held_out`` block), and again on the whole forward family, which must
+give the reading's forward win rate. The banded forward row stays the
+whole family's.
 
 Prints one JSON line, and writes it to ``OUT/result.json``: the port's
 training win rate at each chunk beside the JAX run's, the band check, the
@@ -85,8 +125,11 @@ from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 REFERENCE = ROOT / "results" / "train_L2M20_v2_summary.json"
 FLAGSHIP_REFERENCE = ROOT / "results" / "train_r4_L5df500.log"
+FLAGSHIP100K_REFERENCE = ROOT / "results" / "train_r3_L5df.log"
+FLAGSHIP100K_EVAL = ROOT / "results" / "eval_r3_L5df.json"
 
 # each recipe's task, sizes, train flags, JAX run, evaluation and band rows
 RECIPES = {
@@ -105,6 +148,11 @@ RECIPES = {
                  "flags": ["--updates", "4", "--device-refresh", "1",
                            "--device-forward", "0.25"]},
 }
+RECIPES["flagship100k"] = {
+    **RECIPES["flagship"], "steps": 100_000, "eval_episodes": 4096,
+    "eval_holdout": False, "reference": str(FLAGSHIP100K_REFERENCE),
+    "reference_eval": str(FLAGSHIP100K_EVAL), "holdout_episodes": 8192,
+    "band_steps": "25000,50000,75000,100000"}
 
 # the held-out block: (key in either evaluation JSON, band); the training
 # bank is "train_bank" after ``cli train`` and "bank" after ``cli eval``
@@ -132,20 +180,37 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--log-every", type=int)
     p.add_argument("--eval-episodes", type=int)
     p.add_argument("--holdout-bank", type=int, metavar="N")
+    p.add_argument("--holdout-episodes", type=int, metavar="N",
+                   help="greedy episodes of a --holdout-only reading "
+                        "(default: --eval-episodes)")
     p.add_argument("--holdout-only", action="store_true",
                    help="train nothing: read the held-out evaluation of the "
                         "--resume checkpoint with cli eval")
+    p.add_argument("--summarize-only", action="store_true",
+                   help="train and evaluate nothing: the run as OUT holds it")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--actor-fusion", type=int, default=0, metavar="K")
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument("--resume", metavar="CKPT",
                    help="a checkpoint this tool wrote (OUT/ckpt/final or step_<n>)")
+    p.add_argument("--continue-run", action="store_true",
+                   help="with --resume: cli train --continue-run, so the call "
+                        "goes on as one unbroken run would")
     p.add_argument("--stop-at", type=int, metavar="STEP",
                    help="end this call at STEP (default: --steps)")
     p.add_argument("--out", default=str(ROOT / "build" / "learning_check"),
                    help="checkpoints and the segments' logs")
     p.add_argument("--reference",
                    help="the JAX run: a summary JSON or a train log (read only)")
+    p.add_argument("--reference-eval",
+                   help="JAX's cli eval JSON of the run's checkpoint, whose "
+                        "held-out win rates join the train log's final_eval")
+    p.add_argument("--against", metavar="RECORD",
+                   help="an earlier result JSON of this tool: the rows where "
+                        "the two runs agree, and each one's mean gap to JAX "
+                        "per --window steps")
+    p.add_argument("--window", type=int, default=25_000,
+                   help="steps per window of the mean gaps (--against)")
     p.add_argument("--band", type=float, default=0.05)
     p.add_argument("--band-steps",
                    help="chunk ends whose training win rates are held to the band")
@@ -155,6 +220,8 @@ def parse(argv=None) -> argparse.Namespace:
     for k, v in RECIPES[a.recipe].items():
         if getattr(a, k, None) is None:
             setattr(a, k, v)
+    if a.holdout_episodes is None:
+        a.holdout_episodes = a.eval_episodes
     return a
 
 
@@ -181,6 +248,8 @@ def train_command(a: argparse.Namespace, steps: int, ckpt_dir: str,
            "--device", a.device, *a.model_flags, *a.flags]
     if a.resume:
         cmd += ["--resume", a.resume]
+        if a.continue_run:
+            cmd.append("--continue-run")
     if holdout_dir is not None and a.eval_holdout:
         cmd += ["--eval-holdout", "--holdout-bank", str(a.holdout_bank),
                 "--save-holdout", holdout_dir]
@@ -194,7 +263,7 @@ def eval_command(a: argparse.Namespace, ckpt: str, holdout_dir: str) -> list:
             "-L", str(a.lines), "-M", str(a.moves), "--bank", str(a.bank),
             *a.model_flags, "--checkpoint", ckpt, "--restore-bank", ckpt,
             "--eval-holdout", "--holdout-bank", str(a.holdout_bank),
-            "--episodes", str(a.eval_episodes), "--seed", str(a.seed),
+            "--episodes", str(a.holdout_episodes), "--seed", str(a.seed),
             "--device", a.device, "--save-holdout", holdout_dir]
 
 
@@ -210,11 +279,14 @@ def read_rows(text: str, offset: int) -> list[dict]:
     return rows
 
 
-def read_reference(path: str, num_envs: int) -> dict:
+def read_reference(path: str, num_envs: int, eval_path: Optional[str] = None) -> dict:
     """The JAX run's rows: a summary JSON as it is, or a ``train`` log's
     chunk rows and its last ``{"final_eval": ...}`` line (the greedy win
     rate on the training bank and, with ``--eval-holdout``, the held-out
-    ones), under ``final_eval``; a log without one has no greedy win rate."""
+    ones), under ``final_eval``; a log without one has no greedy win rate.
+    ``eval_path``, a ``cli eval --eval-holdout`` JSON of the run's
+    checkpoint, adds its held-out win rates to ``final_eval`` and its
+    greedy win rate on a training bank as ``eval_bank``."""
     text = Path(path).read_text()
     if path.endswith(".json"):
         return json.loads(text)
@@ -222,10 +294,16 @@ def read_reference(path: str, num_envs: int) -> dict:
     for line in text.splitlines():
         if line.startswith("{") and '"final_eval"' in line:
             final = json.loads(line)["final_eval"]
-    return {"num_envs": num_envs, "history": read_rows(text, 0),
-            "final_greedy_win_rate": None if final is None
-            else final["train_bank"]["win_rate"],
-            "final_eval": final}
+    ref = {"num_envs": num_envs, "history": read_rows(text, 0),
+           "final_greedy_win_rate": None if final is None
+           else final["train_bank"]["win_rate"],
+           "final_eval": final, "eval_bank": None}
+    if eval_path:
+        ev = json.loads(Path(eval_path).read_text())
+        ref["final_eval"] = {**(final or {}), **{
+            k: ev[k] for k in ("holdout", "holdout_carve", "holdout_forward")}}
+        ref["eval_bank"] = ev["bank"]
+    return ref
 
 
 def read_curve(out: Path, num_envs: int) -> list[dict]:
@@ -239,6 +317,26 @@ def read_curve(out: Path, num_envs: int) -> list[dict]:
         for r in read_rows(path.read_text(), start):
             curve[r["step"]] = {**r, "env_steps": r["step"] * num_envs}
     return [curve[s] for s in sorted(curve)]
+
+
+def overlaps(out: Path) -> list[dict]:
+    """Where a segment logged steps that an earlier segment had logged too
+    (it went on from an older checkpoint than the earlier one's last row):
+    the steps both logged, and per step whether the training win rate and
+    loss are the same."""
+    seen: dict[int, tuple] = {}
+    found = []
+    segs = sorted((int(m.group(1)), p) for p in out.glob("segment_*.log")
+                  if (m := _SEGMENT.match(p.name)))
+    for start, path in segs:
+        rows = read_rows(path.read_text(), start)
+        both = [r for r in rows if r["step"] in seen]
+        if both:
+            found.append({"segment": start, "steps": [r["step"] for r in both],
+                          "equal": [(r["win_rate"], r["loss"]) == seen[r["step"]]
+                                    for r in both]})
+        seen.update({r["step"]: (r["win_rate"], r["loss"]) for r in rows})
+    return found
 
 
 def held_out_block(reading: Optional[dict], ref: dict) -> dict:
@@ -256,12 +354,17 @@ def held_out_block(reading: Optional[dict], ref: dict) -> dict:
                       "inside": None if p is None or j is None else abs(p - j) <= width}
     verdicts = [r["inside"] for r in rows.values()]
     holdout = port.get("holdout", {})
+    eval_bank = ref.get("eval_bank")
     return {"port_step": reading["step"] if reading else None,
             "jax_step": max((int(r["step"]) for r in ref["history"]), default=None),
             "episodes": holdout.get("episodes"), "rows": rows,
+            "eval_bank": {"port": (port.get("bank") or {}).get("win_rate"),
+                          "jax": None if eval_bank is None else eval_bank["win_rate"],
+                          "band": None},
             "families": {"port": holdout.get("families"),
                          "jax": jax.get("holdout", {}).get("families")},
             "build": holdout.get("build"),
+            "forward_by_provenance": (reading or {}).get("forward_by_provenance"),
             "inside": None if None in verdicts else all(verdicts)}
 
 
@@ -306,6 +409,36 @@ def compare(curve: list[dict], ref: dict, band: float, band_steps: list[int],
                      "inside": greedy_ok is not False and all(
                          c["inside"] for c in checks)},
             "held_out": held_out_block(held_out, ref)}
+
+
+def window_gaps(rows: list[dict], window: int) -> dict:
+    """The mean port - JAX training win rate over the rows of each window
+    (steps in ``(k * window, (k + 1) * window]``), keyed by its last step."""
+    sums: dict[int, list] = {}
+    for r in rows:
+        if r["jax_win_rate"] is not None:
+            end = -(-r["step"] // window) * window
+            sums.setdefault(end, []).append(r["port_win_rate"] - r["jax_win_rate"])
+    return {end: sum(g) / len(g) for end, g in sorted(sums.items())}
+
+
+def against(rows: list[dict], earlier: dict, window: int) -> dict:
+    """This run's rows beside an earlier record's at the same steps: how
+    many have the same training win rate and loss, the last step up to
+    which every row agrees, the first where they part, and each run's mean
+    gap to JAX per window."""
+    theirs = {r["step"]: r for r in earlier["rows"]}
+    both = [r for r in rows if r["step"] in theirs]
+    same = [(r["port_win_rate"], r["port_loss"])
+            == (theirs[r["step"]]["port_win_rate"], theirs[r["step"]]["port_loss"])
+            for r in both]
+    first_apart = next((r["step"] for r, eq in zip(both, same) if not eq), None)
+    agree = [r["step"] for r in both if first_apart is None or r["step"] < first_apart]
+    return {"rows_compared": len(both), "rows_equal": sum(same),
+            "equal_through": agree[-1] if agree else None,
+            "first_apart": first_apart, "window": window,
+            "gap": {"this": window_gaps(rows, window),
+                    "earlier": window_gaps(earlier["rows"], window)}}
 
 
 def boundaries(curve: list[dict], starts: list[int], log_every: int) -> list[dict]:
@@ -358,17 +491,54 @@ def host_load() -> dict:
     return {"loadavg": list(os.getloadavg()), "cpus": os.cpu_count()}
 
 
+def forward_by_provenance(a: argparse.Namespace, ckpt: str, holdout_dir: str,
+                          ev: dict) -> dict:
+    """The reading's forward win rate on the host DFS solver's rows and on
+    the device beam prover's apart, and on the whole forward family again:
+    ``ckpt``'s weights on the held-out rows saved in ``holdout_dir``, with
+    ``cli eval``'s trainer, episodes and draws (``DQNTrainer.evaluate``)."""
+    from tetris_piclim_tpu_torch import cli
+    from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
+    from tetris_piclim_tpu_torch.gen.bank import FAMILY_FORWARD, ConfigBank
+    from tetris_piclim_tpu_torch.utils.checkpoint import restore_bank
+    from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
+
+    hold = restore_bank(holdout_dir, a.device)
+    build, episodes = ev["holdout"]["build"], ev["holdout"]["episodes"]
+    n_host, n_dev = build["host_forward"], build["device_forward"]
+    if not (hold.family[:n_host + n_dev] == FAMILY_FORWARD).all():
+        raise RuntimeError("the held-out bank's first rows are not its forward rows")
+    args = cli.build_parser().parse_args(["eval", *a.model_flags])
+    cfg = TrainConfig(env=EnvConfig(L=hold.L, M=hold.M), num_envs=64,
+                      bank_capacity=a.bank, replay_capacity=8192, seed=a.seed)
+    trainer = DQNTrainer(cfg, bank=restore_bank(ckpt, a.device),
+                         net=cli._net(args, a.seed), device=a.device)
+    trainer.warm_start(ckpt)
+    cols, pieces = hold.rows
+    out = {}
+    for name, lo, hi in (("host_dfs", 0, n_host), ("device_beam", n_host, n_host + n_dev)):
+        part = ConfigBank.from_rows(hold.L, hold.M, cols[lo:hi], pieces[lo:hi],
+                                    hold.family[lo:hi]) if hi > lo else None
+        out[name] = {"rows": hi - lo, "episodes": episodes,
+                     "win_rate": None if part is None
+                     else trainer.evaluate(episodes, bank=part)["win_rate"]}
+    whole = hold.subset(FAMILY_FORWARD)
+    out["whole_again"] = (None if whole is None
+                          else trainer.evaluate(episodes, bank=whole)["win_rate"])
+    return out
+
+
 def summarize(a: argparse.Namespace, out: Path) -> dict:
     """The whole run as OUT holds it: every segment's rows, records and
     rates, the band, and the newest held-out reading."""
-    ref = read_reference(a.reference, a.num_envs)
+    ref = read_reference(a.reference, a.num_envs, a.reference_eval)
     curve = read_curve(out, a.num_envs)
     segments = []
     for path in sorted(out.glob("segment_*.json"),
                        key=lambda p: int(p.stem.split("_")[1])):
         seg = json.loads(path.read_text())
-        seg_rows = [r for r in curve
-                    if seg["first_step"] < r["step"] <= seg["stop_step"]]
+        log = out / f"segment_{seg['first_step']}.log"
+        seg_rows = read_rows(log.read_text(), seg["first_step"]) if log.exists() else []
         trained_s = sum(a.log_every * a.num_envs / r["sps"] for r in seg_rows)
         seg["env_steps_per_s"] = (len(seg_rows) * a.log_every * a.num_envs / trained_s
                                   if trained_s else None)
@@ -387,8 +557,10 @@ def summarize(a: argparse.Namespace, out: Path) -> dict:
            "last_step": curve[-1]["step"] if curve else 0,
            "total_env_steps": a.steps * a.num_envs,
            "eval_episodes": a.eval_episodes,
-           "holdout_bank": a.holdout_bank if a.eval_holdout else None,
-           "reference": os.path.relpath(a.reference, ROOT)}
+           "holdout_bank": a.holdout_bank if a.eval_holdout or a.reference_eval else None,
+           "reference": os.path.relpath(a.reference, ROOT),
+           "reference_eval": (os.path.relpath(a.reference_eval, ROOT)
+                              if a.reference_eval else None)}
     res.update(compare(curve, ref, a.band, band_steps, greedy, reading))
     trained_s = sum(a.log_every * a.num_envs / r["sps"] for r in curve)
     res["env_steps_per_s"] = (len(curve) * a.log_every * a.num_envs / trained_s
@@ -397,14 +569,28 @@ def summarize(a: argparse.Namespace, out: Path) -> dict:
     res["segments"] = segments
     res["boundaries"] = boundaries(curve, [seg["first_step"] for seg in segments],
                                    a.log_every)
+    res["overlaps"] = overlaps(out)
     res["held_out_readings"] = [json.loads(p.read_text()) for _, p in readings]
+    if a.against:
+        res["against"] = {"record": os.path.relpath(a.against, ROOT),
+                          **against(res["rows"], json.loads(Path(a.against).read_text()),
+                                    a.window)}
     return res
+
+
+def write_result(a: argparse.Namespace, out: Path) -> None:
+    line = json.dumps(summarize(a, out))
+    (out / "result.json").write_text(line + "\n")
+    print(line, flush=True)
 
 
 def main(argv=None) -> int:
     a = parse(argv)
     out = Path(a.out)
     out.mkdir(parents=True, exist_ok=True)
+    if a.summarize_only:
+        write_result(a, out)
+        return 0
     start = resume_step(a.resume) if a.resume else 0
     t0 = time.perf_counter()
     if a.holdout_only:
@@ -434,12 +620,15 @@ def main(argv=None) -> int:
         (out / f"segment_{start}.json").write_text(json.dumps(seg) + "\n")
         start = stop
     if "holdout" in ev:
-        (out / f"holdout_{start}.json").write_text(json.dumps(
-            {"step": start, "source": "eval" if a.holdout_only else "train",
-             "card": card_name, "wall_s": time.perf_counter() - t0, "eval": ev}) + "\n")
-    line = json.dumps(summarize(a, out))
-    (out / "result.json").write_text(line + "\n")
-    print(line, flush=True)
+        reading = {"step": start, "source": "eval" if a.holdout_only else "train",
+                   "card": card_name, "wall_s": time.perf_counter() - t0, "eval": ev}
+        path = out / f"holdout_{start}.json"
+        path.write_text(json.dumps(reading) + "\n")  # kept if the split fails
+        ckpt = a.resume if a.holdout_only else str(out / "ckpt" / "final")
+        reading["forward_by_provenance"] = forward_by_provenance(
+            a, ckpt, str(out / f"holdout_{start}"), ev)
+        path.write_text(json.dumps(reading) + "\n")
+    write_result(a, out)
     return rc
 
 
