@@ -104,7 +104,17 @@ drives the port's two paths through the entry points a user calls:
     pipeline ``generate_batch(2, 20, 0, 100)`` on a spawn-context process
     pool against the thread pool (the same games; both wall times; the
     spawned workers re-import this script, torch included, and a watchdog
-    kills a hung pool after 240 s, which fails the phase).
+    kills a hung pool after 240 s, which fails the phase);
+21. the held-out bank's draw: four L=5/M=25 beam-family draws on the card
+    as ``tools/holdout_draws.py`` makes them (``make_holdout_bank`` with no
+    host seeds, the tool's first four seeds), each timed; every beam row
+    proven again and its solution replayed to WIN; the 100k flagship policy
+    played once per row on the card and on the CPU, TF32 off, every
+    outcome equal except at near-ties (top-two Q gap under 1e-4), which
+    the phase names; each draw's outcomes equal to the card draw of its
+    seed recorded in ``results/holdout_draws_L5M25.jsonl``, and the
+    per-draw win fractions printed beside the JAX package's CPU draws
+    recorded there; all in under 60 s.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
 before a path runs and read just after, and a path whose kernel never
@@ -1849,8 +1859,8 @@ def phase_tpu_policy() -> dict:
 # reading of its own 100k checkpoint (results/eval_r3_L5df.json), each with
 # its band and whether the phase holds it: (JAX's win rate, band, held).
 # The forward row of the run that made the file lies 0.0522 below JAX's,
-# outside its band (a fault open in ROADMAP.md section C): it is reported,
-# not held.
+# outside its band, and its bank lies among ordinary draws of the held-out
+# bank (phase 21; C-1 in ROADMAP.md section C): it is reported, not held.
 FLAGSHIP_POLICY = (ROOT / "results" / "flagship_L5M25_h100_policy.npz",
                    ROOT / "results" / "flagship_L5M25_100k_h100_policy.npz")
 FLAGSHIP_JAX_BANDS = {
@@ -2087,6 +2097,102 @@ def phase_generators() -> dict:
             "process_games_per_s": len(process_games) / process_s}
 
 
+HOLDOUT_DRAWS = ROOT / "results" / "holdout_draws_L5M25.jsonl"
+DRAW_POLICY = "flagship_L5M25_100k_h100_policy.npz"
+DRAW_TIE = 1e-4           # a top-two Q gap under this is a near-tie
+DRAW_COUNT = 4            # draws, the first seeds of tools/holdout_draws.py
+DRAW_LIMIT_S = 60.0
+
+
+def holdout_draws_tool():
+    """``tools/holdout_draws.py`` as a module (its port side imports no JAX)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import holdout_draws
+    return holdout_draws
+
+
+def phase_holdout_draws() -> dict:
+    """Four L=5/M=25 beam-family draws on the card, as
+    ``tools/holdout_draws.py --package port --device cuda`` makes them
+    (``make_holdout_bank`` with no host seeds, the tool's first seeds),
+    each timed; every beam row proven again by the beam prover and its
+    solution replayed to WIN on the card; the 100k flagship policy played
+    once per row on the card and on the CPU, TF32 off, every outcome equal
+    but at named near-ties; each draw's outcomes equal to the recorded
+    card draw of its seed in ``results/holdout_draws_L5M25.jsonl``, and the
+    per-draw win fractions beside the JAX package's CPU draws there."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is off")
+    hd = holdout_draws_tool()
+    t_start = time.perf_counter()
+    L, M = 5, 25
+    policy = str(ROOT / "results" / DRAW_POLICY)
+    nets = {side: (dev, hd.load_policy(policy, dev))
+            for side, dev in (("card", DEV), ("cpu", torch.device("cpu")))}
+    draws = []
+    for seed in hd.SEEDS[:DRAW_COUNT]:
+        bank = hd.port_banks(L, M, ["holdout"], seed, None, DEV, hd.HOLDOUT_ROWS,
+                             hd.TRAIN_ROWS)[0]
+        boards = torch.as_tensor(bank["boards"], device=DEV)
+        pieces = torch.as_tensor(bank["pieces"], device=DEV)
+        cols = bb.pack_board(boards)
+        n = cols.shape[0]
+        won, rots, locs, n_moves = device_forward.prove_batch_device(
+            cols, pieces, L, M, beam_width=8)
+        st = replay_status(cols, pieces, rots, locs, L, M)
+        check(n == hd.HOLDOUT_ROWS // 2 and bool(won.all())
+              and bool((st.status == 1).all())
+              and torch.equal(st.moves_used, n_moves),
+              f"seed {seed}: {n} beam rows in {bank['build_s']:.2f} s "
+              f"({bank['beam']['chunks']} chunks, {bank['beam']['winners']} winners of "
+              f"{bank['beam']['candidates']}), each proven again and replayed to WIN")
+        ends = {}
+        with torch.no_grad():
+            for side, (dev, net) in nets.items():
+                env = bb.make_state_batch(cols.to(dev), pieces.to(dev), L, M)
+                env, gap = greedy_min_gap(net, env, M + 1)
+                ends[side] = (env.status.cpu(), gap.cpu())
+        (st_card, gap_card), (st_cpu, gap_cpu) = ends["card"], ends["cpu"]
+        apart = st_card != st_cpu
+        tie = torch.minimum(gap_card, gap_cpu) < DRAW_TIE
+        named = [int(i) for i in (apart & tie).nonzero()[:, 0]]
+        check(not bool((apart & ~tie).any()),
+              f"seed {seed}: the 100k policy's outcome on the card equals the CPU's on "
+              f"{n - int(apart.sum())} of {n} rows; near-ties apart (gap < {DRAW_TIE}): "
+              f"{named}")
+        draws.append({"seed": seed, "build_s": bank["build_s"], "rows": n,
+                      "beam": bank["beam"], "win_fraction": float((st_card == 1).float().mean()),
+                      "cpu_win_fraction": float((st_cpu == 1).float().mean()),
+                      "near_tie_rows_apart": named,
+                      "won_hex": np.packbits((st_card == 1).numpy()).tobytes().hex()})
+    recorded = [json.loads(t) for t in HOLDOUT_DRAWS.read_text().splitlines() if t.strip()]
+    beam = [ln for ln in recorded if ln["family"] == "beam" and not ln["reference"]]
+    jax_wins = np.array([ln["policies"][DRAW_POLICY]["win_fraction"] for ln in beam
+                         if ln["package"] == "jax"])
+    card_lines = {ln["seed"]: ln for ln in beam if ln["package"] == "port"
+                  and ln["device"] == "cuda"}
+    same = [d["seed"] in card_lines
+            and card_lines[d["seed"]]["policies"][DRAW_POLICY]["won_hex"] == d["won_hex"]
+            for d in draws]
+    check(all(same), "each draw's outcomes equal, row for row, the recorded card draw "
+          f"of its seed in {HOLDOUT_DRAWS.name}: {same}")
+    wins = [d["win_fraction"] for d in draws]
+    print(f"  the 100k policy on these draws' beam rows: {', '.join(f'{w:.4f}' for w in wins)}; "
+          f"JAX's CPU draws ({jax_wins.size}): mean {jax_wins.mean():.4f}, sd "
+          f"{jax_wins.std(ddof=1):.4f}, range {jax_wins.min():.4f}-{jax_wins.max():.4f}")
+    total_s = time.perf_counter() - t_start
+    check(total_s < DRAW_LIMIT_S, f"phase 21 took {total_s:.1f} s (< {DRAW_LIMIT_S:.0f})")
+    for d in draws:
+        del d["won_hex"]
+    return {"draws": draws, "jax_cpu": {"draws": int(jax_wins.size),
+                                        "mean": float(jax_wins.mean()),
+                                        "sd": float(jax_wins.std(ddof=1)),
+                                        "min": float(jax_wins.min()),
+                                        "max": float(jax_wins.max())},
+            "equal_to_recorded_card_draws": same,
+            "total_s": total_s}
+
+
 def multigpu_worker(kind: str, out: str) -> int:
     res = {"nccl1": worker_one_rank_nccl, "gloo2": worker_two_ranks_gloo,
            "refresh2": worker_mesh_refresh,
@@ -2165,6 +2271,7 @@ def main() -> int:
     tpu = phase_tpu_policy()
     flag_policy = phase_flagship_policy()
     generators = phase_generators()
+    holdout_draws = phase_holdout_draws()
 
     kernels = [
         {"name": "rollout", "route": "cuda",
@@ -2218,6 +2325,7 @@ def main() -> int:
     print(json.dumps({"tpu_policy": tpu, "card": smi}))
     print(json.dumps({"flagship_policy": flag_policy, "card": smi}))
     print(json.dumps({"generators": generators, "card": smi}))
+    print(json.dumps({"holdout_draws": holdout_draws, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)

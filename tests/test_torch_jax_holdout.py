@@ -2,12 +2,14 @@
 the JAX package's held-out rows built on the CPU, the port's own held-out
 host rows found to be JAX's first host rows seed for seed, and a toy
 policy played once on every row, the forward fraction per host count
-adding up from its parts."""
+adding up from its parts; ``--save`` writes those rows, each part in
+JAX's order."""
 
 import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,8 +39,18 @@ def test_jax_holdout_rows_small(tmp_path, monkeypatch, capsys):
             "net": {"model": "conv", "channels": [4, 8], "dueling": True, "joint": True}}
     path = tmp_path / "toy_policy.npz"
     save_policy_npz(str(path), net.state_dict(), {"train": train, "holdout": hold}, meta)
-    assert jhr.main(["--windows", "1", "--policy", str(path)]) == 0
+    saved = tmp_path / "jax_rows.npz"
+    assert jhr.main(["--windows", "1", "--policy", str(path), "--save", str(saved)]) == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with np.load(saved) as z:
+        assert {k: z[k].shape for k in z.files} == {
+            "beam_boards": (8, 20, 10), "beam_pieces": (8, 9),
+            "carve_boards": (8, 20, 10), "carve_pieces": (8, 9),
+            "host_boards": (res["host"]["rows"], 20, 10),
+            "host_pieces": (res["host"]["rows"], 9)}
+        # the saved host rows begin with the port's own, seed for seed
+        n = res["own_host_rows"]
+        assert (z["host_pieces"][:n] == hold.pieces[:n].numpy()).all()
     assert res["own_host_rows_are_jax_first_host_rows"]
     assert res["own_host_rows"] == hold.provenance["host_forward"]
     assert res["beam"]["rows"] == 8 and res["carve"]["rows"] == 8

@@ -577,6 +577,48 @@ def test_forward_by_provenance_splits_the_forward_family(tmp_path):
         lc.forward_by_provenance(a, ckpt, str(tmp_path / "holdout"), ev)
 
 
+def test_on_jax_rows_plays_every_jax_row_once(tmp_path, monkeypatch):
+    """The checkpoint's policy on JAX's own held-out rows of the task: each
+    part's rows won equal the policy played once per row, and the forward
+    family for h host rows is the first h host rows with the first n - h
+    beam rows; a task with no such file gives None."""
+    import numpy as np
+
+    import holdout_draws as hd
+    import learning_check as lc
+
+    from tetris_piclim_tpu_torch.ops.bitboard import unpack_board
+
+    trainer, ckpt, hold = _tiny_run(tmp_path)
+    boards = unpack_board(hold.cols).numpy()
+    pieces = hold.pieces.numpy()
+    path = tmp_path / "jax_rows.npz"
+    np.savez_compressed(path, beam_boards=boards[:8], beam_pieces=pieces[:8],
+                        carve_boards=boards[8:], carve_pieces=pieces[8:],
+                        host_boards=boards[3:8], host_pieces=pieces[3:8])
+    a = lc.parse(["--recipe", "flagship100k", "--device", "cpu", "-L", "1", "-M", "8",
+                  "--bank", "16"])
+    assert lc.on_jax_rows(a, ckpt) is None
+    monkeypatch.setattr(lc, "JAX_ROWS", {(1, 8): path})
+    monkeypatch.setattr(lc, "JAX_HOST_ROWS", (0, 3, 9))
+    got = lc.on_jax_rows(a, ckpt)
+    won = hd.play(trainer.state.net, boards, pieces, 1, 8, "cpu")
+    assert got["beam"] == {"rows": 8, "won": int(won[:8].sum()),
+                           "win_fraction": float(won[:8].mean())}
+    assert got["carve"]["won"] == int(won[8:].sum())
+    assert got["host"]["won"] == int(won[3:8].sum())
+    want = []
+    for h in (0, 3, 5):  # 9 is cut to the 5 host rows there are
+        fwd = int(won[3:3 + h].sum()) + int(won[:8 - h].sum())
+        want.append({"host_rows": h, "forward_win_fraction": fwd / 8,
+                     "holdout_win_fraction": (fwd + int(won[8:].sum())) / 16})
+    assert got["by_host_rows"] == want
+    reading = _reading(10, 0.5, 0.5, 0.5, 0.5)
+    reading["on_jax_rows"] = got
+    ref = lc.read_reference(a.reference, a.num_envs, a.reference_eval)
+    assert lc.held_out_block(reading, ref)["on_jax_rows"] == got
+
+
 def test_learning_check_flagship100k_small(tmp_path):
     """``--recipe flagship100k`` at a toy size on the CPU: the run ends
     with the evaluation on the training bank and no held-out one, and the

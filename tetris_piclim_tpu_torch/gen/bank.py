@@ -407,8 +407,10 @@ def make_holdout_bank(
     Every row that collides with a training row (or an earlier holdout row)
     is dropped, and disjointness is checked at the end. The bank's
     ``provenance`` says where its rows came from: ``host_forward`` and
-    ``device_forward`` rows, the ``host_seeds`` the DFS solver tried, and
-    the build's ``seconds``."""
+    ``device_forward`` rows, the ``host_seeds`` the DFS solver tried, the
+    beam prover's yield (``beam_chunks`` run, ``beam_candidates`` drawn,
+    ``beam_winners`` proven, before the dedup and the cut to the share),
+    and the build's ``seconds``."""
     t_start = time.monotonic()
     bank = ConfigBank(L, M, capacity=capacity, seed=seed, device=device)
     dev, P = bank.device, bank.P
@@ -437,12 +439,16 @@ def make_holdout_bank(
     n_host = len(rows)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    beam = {"beam_candidates": 0, "beam_winners": 0, "beam_chunks": 0}
     for _ in range(8):
         if len(rows) >= n_forward:
             break
         fb = device_forward.generate_batch_device(
             _fwd_chunk_for(n_forward), L, M, generator=gen, device=dev)
         win = fb.winnable.nonzero()[:, 0]
+        beam["beam_chunks"] += 1
+        beam["beam_candidates"] += fb.winnable.numel()
+        beam["beam_winners"] += win.numel()
         boards = unpack_board(fb.boards[win]).cpu().numpy()
         pieces = fb.pieces[win].cpu().numpy()
         for b, p in zip(boards, pieces):
@@ -470,6 +476,6 @@ def make_holdout_bank(
             raise RuntimeError(f"holdout/train overlap: {len(overlap)} rows")
     bank.provenance = {"host_forward": n_host, "device_forward": n_forward_got - n_host,
                        "carve": capacity - n_forward_got,
-                       "host_seeds": s - forward_seed_start,
+                       "host_seeds": s - forward_seed_start, **beam,
                        "seconds": time.monotonic() - t_start}
     return bank

@@ -1,7 +1,7 @@
 """The port's flagship policy on the JAX package's own held-out rows.
 
     JAX_PLATFORMS=cpu python3 tools/jax_holdout_rows.py [--windows 4]
-        [--policy NPZ]
+        [--policy NPZ] [--save NPZ]
 
 JAX's held-out reading of a flagship checkpoint (``cli eval --eval-holdout
 --holdout-bank 2048``) builds its bank with ``gen/bank.py::
@@ -19,7 +19,11 @@ policy (``--policy``, by default the 100k one) once on every row (greedy,
 on the bitboard, CPU), and prints one JSON line: rows won per part, and
 the forward win fraction of JAX's bank for each host count h that a whole
 number of windows gives (0 included). Runs on the CPU; minutes, most of
-them the host DFS.
+them the host DFS. ``--save`` writes the rows themselves to a compressed
+numpy file (``beam_``, ``carve_`` and ``host_`` ``boards`` bool[n, 20, 10]
+and ``pieces`` int8[n, M+1], each part in JAX's order), so that a machine
+without JAX can play them: ``tools/learning_check.py`` reads
+``results/jax_holdout_rows_L5M25.npz``, written by ``--windows 3 --save``.
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ def main(argv=None) -> int:
     p.add_argument("--windows", type=int, default=4,
                    help="windows of 100 host seeds to prove")
     p.add_argument("--policy", default=str(POLICY))
+    p.add_argument("--save", metavar="NPZ", help="write JAX's held-out rows here")
     a = p.parse_args(argv)
 
     from tetris_piclim_tpu_torch.models.convnet import ConvQNetwork
@@ -101,6 +106,12 @@ def main(argv=None) -> int:
     net.eval()
     rows = jax_rows(a.windows)
     host = [r for w in rows["host_windows"] for r in w]
+    if a.save:
+        np.savez_compressed(
+            a.save, beam_boards=rows["beam"][0], beam_pieces=rows["beam"][1],
+            carve_boards=rows["carve"][0], carve_pieces=rows["carve"][1],
+            host_boards=np.array([b for b, _ in host], bool).reshape(-1, 20, 10),
+            host_pieces=np.array([q for _, q in host], np.int8).reshape(-1, M + 1))
     # the policy file's own host rows: the port's host loop, seed for seed
     n_own = pol["meta"]["eval"]["holdout"]["build"]["host_forward"]
     own = pol["banks"]["holdout"]

@@ -101,7 +101,13 @@ reading's checkpoint on each part in turn, with the episodes and draws of
 ``cli eval`` (``forward_by_provenance`` in ``OUT/holdout_<step>.json`` and in
 the ``held_out`` block), and again on the whole forward family, which must
 give the reading's forward win rate. The banded forward row stays the
-whole family's.
+whole family's. At L=5/M=25 it also plays the checkpoint once on each of
+JAX's own held-out rows of that task, carried in
+``results/jax_holdout_rows_L5M25.npz`` (``tools/jax_holdout_rows.py
+--save``): JAX's beam rows and carves and its first host rows, and from
+them the forward family and the whole bank JAX's reading would have held
+had its host proved 0, 71 or 96 rows (``on_jax_rows``). The rows are
+identical inputs for both packages, so the card needs no JAX for it.
 
 Prints one JSON line, and writes it to ``OUT/result.json``: the port's
 training win rate at each chunk beside the JAX run's, the band check, the
@@ -130,6 +136,10 @@ REFERENCE = ROOT / "results" / "train_L2M20_v2_summary.json"
 FLAGSHIP_REFERENCE = ROOT / "results" / "train_r4_L5df500.log"
 FLAGSHIP100K_REFERENCE = ROOT / "results" / "train_r3_L5df.log"
 FLAGSHIP100K_EVAL = ROOT / "results" / "eval_r3_L5df.json"
+# JAX's own held-out rows of a task (``tools/jax_holdout_rows.py --save``),
+# and the host row counts h whose forward family a reading plays
+JAX_ROWS = {(5, 25): ROOT / "results" / "jax_holdout_rows_L5M25.npz"}
+JAX_HOST_ROWS = (0, 71, 96)
 
 # each recipe's task, sizes, train flags, JAX run, evaluation and band rows
 RECIPES = {
@@ -365,6 +375,7 @@ def held_out_block(reading: Optional[dict], ref: dict) -> dict:
                          "jax": jax.get("holdout", {}).get("families")},
             "build": holdout.get("build"),
             "forward_by_provenance": (reading or {}).get("forward_by_provenance"),
+            "on_jax_rows": (reading or {}).get("on_jax_rows"),
             "inside": None if None in verdicts else all(verdicts)}
 
 
@@ -491,29 +502,37 @@ def host_load() -> dict:
     return {"loadavg": list(os.getloadavg()), "cpus": os.cpu_count()}
 
 
+def eval_trainer(a: argparse.Namespace, ckpt: str, L: int, M: int):
+    """``cli eval``'s trainer on ``ckpt``: its weights and its bank."""
+    from tetris_piclim_tpu_torch import cli
+    from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
+    from tetris_piclim_tpu_torch.utils.checkpoint import restore_bank
+    from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
+
+    args = cli.build_parser().parse_args(["eval", *a.model_flags])
+    cfg = TrainConfig(env=EnvConfig(L=L, M=M), num_envs=64,
+                      bank_capacity=a.bank, replay_capacity=8192, seed=a.seed)
+    trainer = DQNTrainer(cfg, bank=restore_bank(ckpt, a.device),
+                         net=cli._net(args, a.seed), device=a.device)
+    trainer.warm_start(ckpt)
+    return trainer
+
+
 def forward_by_provenance(a: argparse.Namespace, ckpt: str, holdout_dir: str,
                           ev: dict) -> dict:
     """The reading's forward win rate on the host DFS solver's rows and on
     the device beam prover's apart, and on the whole forward family again:
     ``ckpt``'s weights on the held-out rows saved in ``holdout_dir``, with
     ``cli eval``'s trainer, episodes and draws (``DQNTrainer.evaluate``)."""
-    from tetris_piclim_tpu_torch import cli
-    from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
     from tetris_piclim_tpu_torch.gen.bank import FAMILY_FORWARD, ConfigBank
     from tetris_piclim_tpu_torch.utils.checkpoint import restore_bank
-    from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
 
     hold = restore_bank(holdout_dir, a.device)
     build, episodes = ev["holdout"]["build"], ev["holdout"]["episodes"]
     n_host, n_dev = build["host_forward"], build["device_forward"]
     if not (hold.family[:n_host + n_dev] == FAMILY_FORWARD).all():
         raise RuntimeError("the held-out bank's first rows are not its forward rows")
-    args = cli.build_parser().parse_args(["eval", *a.model_flags])
-    cfg = TrainConfig(env=EnvConfig(L=hold.L, M=hold.M), num_envs=64,
-                      bank_capacity=a.bank, replay_capacity=8192, seed=a.seed)
-    trainer = DQNTrainer(cfg, bank=restore_bank(ckpt, a.device),
-                         net=cli._net(args, a.seed), device=a.device)
-    trainer.warm_start(ckpt)
+    trainer = eval_trainer(a, ckpt, hold.L, hold.M)
     cols, pieces = hold.rows
     out = {}
     for name, lo, hi in (("host_dfs", 0, n_host), ("device_beam", n_host, n_host + n_dev)):
@@ -525,6 +544,42 @@ def forward_by_provenance(a: argparse.Namespace, ckpt: str, holdout_dir: str,
     whole = hold.subset(FAMILY_FORWARD)
     out["whole_again"] = (None if whole is None
                           else trainer.evaluate(episodes, bank=whole)["win_rate"])
+    return out
+
+
+def on_jax_rows(a: argparse.Namespace, ckpt: str) -> Optional[dict]:
+    """``ckpt``'s policy played once, greedy, on each of JAX's own held-out
+    rows of the task (``JAX_ROWS``; None where the task has none): JAX's
+    beam rows and carves under its key, and its host DFS rows in order. A
+    JAX bank whose host proved h rows holds its first h host rows and its
+    first 1024 - h beam rows, so for each h of ``JAX_HOST_ROWS`` this
+    gives the forward family's win fraction and, with the carves, the
+    held-out bank's."""
+    path = JAX_ROWS.get((a.lines, a.moves))
+    if path is None or not path.exists():
+        return None
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from holdout_draws import play
+
+    net = eval_trainer(a, ckpt, a.lines, a.moves).state.net
+    with np.load(path) as z:
+        won = {part: play(net, z[f"{part}_boards"], z[f"{part}_pieces"], a.lines,
+                          a.moves, a.device) for part in ("beam", "carve", "host")}
+    out = {"rows": os.path.relpath(path, ROOT)}
+    for part, w in won.items():
+        out[part] = {"rows": int(w.size), "won": int(w.sum()),
+                     "win_fraction": float(w.mean()) if w.size else None}
+    n_fwd = won["beam"].size
+    out["by_host_rows"] = []
+    for h in JAX_HOST_ROWS:
+        h = min(h, won["host"].size)
+        fwd = int(won["host"][:h].sum()) + int(won["beam"][:n_fwd - h].sum())
+        out["by_host_rows"].append({
+            "host_rows": h, "forward_win_fraction": fwd / n_fwd,
+            "holdout_win_fraction": (fwd + int(won["carve"].sum()))
+            / (n_fwd + won["carve"].size)})
     return out
 
 
@@ -627,6 +682,7 @@ def main(argv=None) -> int:
         ckpt = a.resume if a.holdout_only else str(out / "ckpt" / "final")
         reading["forward_by_provenance"] = forward_by_provenance(
             a, ckpt, str(out / f"holdout_{start}"), ev)
+        reading["on_jax_rows"] = on_jax_rows(a, ckpt)
         path.write_text(json.dumps(reading) + "\n")
     write_result(a, out)
     return rc
