@@ -79,21 +79,27 @@ drives the port's two paths through the entry points a user calls:
     actions agree on at least 99.9% of env-steps, and every disagreement is
     a near-tie (top two Q values within 1e-4);
 19. the flagship policies the port trained on the H100, at 175k steps
-    (``results/flagship_L5M25_h100_policy.npz``) and at 100k steps of an
-    unbroken run (``results/flagship_L5M25_100k_h100_policy.npz``), each
+    (``results/flagship_L5M25_h100_policy.npz``) and at 100k steps of
+    unbroken runs at training seeds 0 and 1
+    (``results/flagship_L5M25_100k_h100_policy.npz``,
+    ``flagship_L5M25_100k_seed1_h100_policy.npz``), each
     L=5/M=25, conv (32,64) + dueling + joint, carried out of its checkpoint
     by ``tools/flagship_policy.py`` with its training bank and its 2048
     held-out rows. For each file: ``DQNTrainer.warm_start`` from the file
     (as ``cli eval --checkpoint`` loads it), 8192 greedy episodes on the
     carried held-out rows within 0.005 of the recorded held-out win rate
-    (per family and on the training bank reported), and the greedy episode
+    with TF32 off (per family and on the training bank reported), then
+    with cuDNN's TF32 on, as the reading ran (PyTorch's default), all four
+    rates equal to the recorded ones exactly, and the greedy episode
     of each of 256 held-out rows on the card against the CPU, TF32 off:
     every episode that ends otherwise has a top-two Q gap under 1e-3 on its
     way; all in under 60 s per file, with no DFS (the rows are carried).
-    The 100k policy's held-out and carve win rates lie inside the bands
-    around JAX's reading of its 100k checkpoint (0.03, 0.05); its forward
-    win rate is set beside JAX's with its band's verdict (0.05), and not
-    held: the run that made the file lies outside it;
+    The evaluation draws its episodes from the run's training seed, as
+    ``cli eval`` did. Each 100k policy's held-out, carve and forward win
+    rates are set beside JAX's reading of its 100k checkpoint with their
+    bands (0.03, 0.05, 0.05), and held where the run that made the file
+    read inside: seed 0's forward row lies outside its band, and is
+    reported, not held;
 20. the generators on explicit draws: (a) the device carver at the
     flagship bank's shape (n=4096, L=5/M=25, JAX's default ``max_iters``)
     on draws made on the CPU from a seeded generator, card against CPU word
@@ -1854,20 +1860,27 @@ def phase_tpu_policy() -> dict:
             "actor_largest_tie_gap": worst_gap}
 
 
-# the port's flagship policies: the 175k-step one, and the 100k-step one of
-# the unbroken run, whose replayed held-out win rates stand beside JAX's
-# reading of its own 100k checkpoint (results/eval_r3_L5df.json), each with
-# its band and whether the phase holds it: (JAX's win rate, band, held).
-# The forward row of the run that made the file lies 0.0522 below JAX's,
-# outside its band, and its bank lies among ordinary draws of the held-out
-# bank (phase 21; C-1 in ROADMAP.md section C): it is reported, not held.
+# the port's flagship policies: the 175k-step one, and the 100k-step ones
+# of unbroken runs at training seeds 0 and 1, whose replayed held-out
+# win rates stand beside JAX's reading of its own 100k checkpoint
+# (results/eval_r3_L5df.json), each with its band and whether the phase
+# holds it: (JAX's win rate, band, held). A row is held where the run that
+# made the file read inside its band, and reported otherwise: seed 0's
+# forward row lies 0.0522 below JAX's, and its bank among ordinary draws of
+# the held-out bank (phase 21; C-1 in ROADMAP.md section C).
+FLAGSHIP_100K = {"flagship_L5M25_100k_h100_policy.npz": 0,
+                 "flagship_L5M25_100k_seed1_h100_policy.npz": 1}
 FLAGSHIP_POLICY = (ROOT / "results" / "flagship_L5M25_h100_policy.npz",
-                   ROOT / "results" / "flagship_L5M25_100k_h100_policy.npz")
+                   *(ROOT / "results" / name for name in FLAGSHIP_100K))
+JAX_100K_BANDS = {"holdout": (0.7978515625, 0.03), "holdout_carve": (0.837646484375, 0.05),
+                  "holdout_forward": (0.74755859375, 0.05)}
+# per training seed, the rows its reading holds inside the band
+FLAGSHIP_HELD = {0: ("holdout", "holdout_carve"),
+                 1: ("holdout", "holdout_carve", "holdout_forward")}
 FLAGSHIP_JAX_BANDS = {
-    "flagship_L5M25_100k_h100_policy.npz": {
-        "holdout": (0.7978515625, 0.03, True),
-        "holdout_carve": (0.837646484375, 0.05, True),
-        "holdout_forward": (0.74755859375, 0.05, False)}}
+    name: {key: (jax_rate, width, key in FLAGSHIP_HELD[seed])
+           for key, (jax_rate, width) in JAX_100K_BANDS.items()}
+    for name, seed in FLAGSHIP_100K.items()}
 FLAGSHIP_TIE = 1e-3
 
 
@@ -1888,8 +1901,8 @@ def greedy_min_gap(net, env, n_steps: int):
 
 def phase_flagship_policy() -> dict:
     """Each of the port's own flagship policies on its carried held-out
-    rows: the recorded held-out win rate again, the card against the CPU,
-    and for the 100k policy JAX's 100k bands."""
+    rows: the recorded win rates again, the card against the CPU, and for
+    the 100k policies JAX's 100k bands."""
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is off")
     return {path.name: flagship_policy_file(path) for path in FLAGSHIP_POLICY}
@@ -1908,24 +1921,27 @@ def flagship_policy_file(path: Path) -> dict:
           f"families {hold.family_counts}")
     cfg = TrainConfig(env=EnvConfig(L=L, M=M), num_envs=64,
                       bank_capacity=pol["banks"]["train"].capacity,
-                      replay_capacity=8192, seed=0)  # cli eval's
+                      replay_capacity=8192,
+                      seed=meta.get("seed", 0))  # cli eval's: the run's seed
     trainer = DQNTrainer(cfg, bank=pol["banks"]["train"], net=flagship_net(0),
                          device=DEV)
     trainer.warm_start(str(path))
-    got = {"holdout": trainer.evaluate(8192, bank=hold),
-           "holdout_carve": trainer.evaluate(8192, bank=hold.subset(FAMILY_CARVE)),
-           "holdout_forward": trainer.evaluate(8192, bank=hold.subset(FAMILY_FORWARD)),
-           "train_bank": trainer.evaluate(8192)}
+    banks = {"holdout": hold, "holdout_carve": hold.subset(FAMILY_CARVE),
+             "holdout_forward": hold.subset(FAMILY_FORWARD), "train_bank": None}
+    rates = {k: trainer.evaluate(8192, bank=b)["win_rate"] for k, b in banks.items()}
     sync()
     eval_s = time.perf_counter() - t0
     recorded = {k: rec[k]["win_rate"] for k in ("holdout", "holdout_carve",
                                                 "holdout_forward")}
     recorded["train_bank"] = (rec.get("bank") or rec["train_bank"])["win_rate"]
-    rates = {k: v["win_rate"] for k, v in got.items()}
     check(abs(rates["holdout"] - recorded["holdout"]) <= 0.005,
           f"held-out win rate {rates['holdout']} within 0.005 of the recorded "
           f"{recorded['holdout']} (all four {rates}, recorded {recorded}; "
           f"{eval_s:.2f} s)")
+    with cudnn_tf32():  # as the reading ran: cuDNN's TF32 on, PyTorch's default
+        as_run = {k: trainer.evaluate(8192, bank=b)["win_rate"] for k, b in banks.items()}
+    check(as_run == recorded, f"with cuDNN's TF32 on, as the reading ran, all four "
+          f"win rates {as_run} equal the recorded {recorded}")
     bands = FLAGSHIP_JAX_BANDS.get(path.name, {})
     verdicts = {}
     for key, (jax_rate, width, held) in bands.items():
@@ -1959,6 +1975,7 @@ def flagship_policy_file(path: Path) -> dict:
     total_s = time.perf_counter() - t0
     check(total_s < 60, f"phase 19 took {total_s:.1f} s (< 60) on {path.name}")
     return {"step": meta["step"], "win_rates": rates, "recorded": recorded,
+            "win_rates_tf32": as_run,
             "jax_bands": {k: {"jax": j, "band": w, "held": held, "inside": verdicts[k]}
                           for k, (j, w, held) in bands.items()},
             "holdout_families": hold.family_counts, "eval_s": eval_s,

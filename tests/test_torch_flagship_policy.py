@@ -1,8 +1,9 @@
 """The flagship policies the port trained on the H100 (L=5/M=25, conv (32,64)
 + dueling + joint): at 175k steps (``tools/learning_check.py --recipe
 flagship``, ``results/flagship_L5M25_h100_policy.npz``) and at 100k steps
-of one unbroken run (``--recipe flagship100k``,
-``results/flagship_L5M25_100k_h100_policy.npz``), each carried out of its
+of unbroken runs at training seeds 0 and 1 (``--recipe flagship100k``,
+``results/flagship_L5M25_100k_h100_policy.npz``,
+``flagship_L5M25_100k_seed1_h100_policy.npz``), each carried out of its
 checkpoint by ``tools/flagship_policy.py`` with its training bank, its
 held-out rows and their recorded evaluation. Every test runs on each file.
 
@@ -31,18 +32,21 @@ from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
 torch.set_num_threads(1)
 
 RESULTS = Path(__file__).resolve().parents[1] / "results"
-# each carried policy and the step its run stopped at
-POLICIES = {"175k": (RESULTS / "flagship_L5M25_h100_policy.npz", 175_000),
-            "100k": (RESULTS / "flagship_L5M25_100k_h100_policy.npz", 100_000)}
+# each carried policy, the step its run stopped at and its training seed
+POLICIES = {"175k": (RESULTS / "flagship_L5M25_h100_policy.npz", 175_000, 0),
+            "100k": (RESULTS / "flagship_L5M25_100k_h100_policy.npz", 100_000, 0),
+            "100k_seed1": (RESULTS / "flagship_L5M25_100k_seed1_h100_policy.npz",
+                           100_000, 1)}
 Q_ATOL = 1e-4
 N_PARAMS = 1_681_321
 
 
 @pytest.fixture(scope="module", params=sorted(POLICIES), ids=sorted(POLICIES))
 def carried(request):
-    path, step = POLICIES[request.param]
+    path, step, seed = POLICIES[request.param]
     pol = read_policy_npz(str(path))
     assert pol["meta"]["step"] == step
+    assert pol["meta"].get("seed", 0) == seed  # the files before seeds carry none
     net = tconv.ConvQNetwork(channels=(32, 64), dueling=True, joint=True)
     net.load_state_dict(pol["net"])
     return pol, net.eval(), path

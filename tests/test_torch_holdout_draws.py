@@ -258,3 +258,164 @@ def test_holm_and_pooled_table():
     t = hd.pooled_table([{"0": 100, "1": 3}, {"2": 1}], [{"0": 90, "1": 9}])
     # values 1 and 2 merge into one column (too few alone)
     assert t.tolist() == [[100, 4], [90, 9]]
+
+
+def _line(seed: int, family: str, won: dict, side=("port", "cuda")) -> dict:
+    """A draw's line with hand-made rows won per policy."""
+    return {"task": "L5M25", "package": side[0], "device": side[1], "family": family,
+            "seed": seed, "reference": False, "stats": {"rows": len(next(iter(won.values())))},
+            "beam": None, "forward_rows": None,
+            "policies": {name: {"rows": len(w), "won": int(sum(w)),
+                                "win_fraction": sum(w) / len(w),
+                                "won_hex": np.packbits(np.array(w, bool)).tobytes().hex()}
+                         for name, w in won.items()}}
+
+
+def test_seed_gap_on_hand_made_bits():
+    """``--paired``: each policy against the first on the same rows, draw by
+    draw: the mean, sd and standard error of the per-draw gaps, a paired t
+    test, and the rows only one of the two won."""
+    base = [[1, 1, 0, 0, 1, 0, 1, 0, 1, 1], [0, 1, 1, 1, 0, 0, 0, 1, 1, 0],
+            [1, 0, 0, 1, 1, 1, 0, 0, 0, 1]]
+    other = [[1, 1, 1, 0, 1, 0, 1, 0, 1, 1], [0, 1, 1, 1, 1, 1, 0, 1, 1, 0],
+             [0, 0, 0, 1, 1, 1, 0, 0, 0, 1]]
+    lines = [_line(2_000_000 + i, "beam", {"s0.npz": b, "s1.npz": o})
+             for i, (b, o) in enumerate(zip(base, other))]
+    lines.append(_line(2_000_000, "beam", {"s0.npz": base[0], "s1.npz": base[0]},
+                       side=("jax", "cpu")))
+    res = hd.paired(lines)["tasks"]["L5M25"]
+    blk = res["port/cuda"]["beam"]
+    assert blk["base"] == "s0.npz" and blk["draws"] == 3
+    gap = blk["policies"]["s1.npz"]
+    d = np.array([0.1, 0.2, -0.1])
+    assert gap["gap"]["mean"] == pytest.approx(d.mean())
+    assert gap["gap"]["sd"] == pytest.approx(d.std(ddof=1))
+    assert gap["gap"]["se"] == pytest.approx(d.std(ddof=1) / np.sqrt(3))
+    assert gap["gap"]["paired_t_p"] == pytest.approx(
+        stats.ttest_rel([np.mean(o) for o in other], [np.mean(b) for b in base]).pvalue)
+    assert (gap["rows_only_this"], gap["rows_only_base"]) == (3, 1)
+    assert gap["win"]["mean"] == pytest.approx(np.mean([np.mean(o) for o in other]))
+    # a side whose every draw has the same gap, and both sides' draws together
+    assert res["jax/cpu"]["beam"]["policies"]["s1.npz"]["gap"]["sd"] is None
+    assert res["all"]["beam"]["draws"] == 4
+    assert res["all"]["beam"]["policies"]["s1.npz"]["gap"]["mean"] == pytest.approx(
+        d.sum() / 4)
+    same = hd.seed_gap([np.ones(4, bool)] * 2, [np.ones(4, bool)] * 2)["gap"]
+    assert (same["mean"], same["sd"], same["paired_t_p"]) == (0.0, 0.0, 1.0)
+    # lines that hold other policies are refused
+    lines.append(_line(2_000_009, "beam", {"s0.npz": base[0]}))
+    with pytest.raises(SystemExit):
+        hd.paired(lines)
+
+
+def test_paired_pairs_of_later_policies():
+    """``--paired`` also sets each later policy against each other one before
+    it (``pairs``), not only against the first: the gap of seed 2 to seed 1
+    is measured without seed 0 in it."""
+    b = [[1, 1, 0, 0, 1, 0, 1, 0], [0, 1, 1, 1, 0, 0, 0, 1]]
+    s1 = [[1, 1, 1, 0, 1, 0, 1, 0], [0, 1, 1, 1, 1, 1, 0, 1]]
+    s2 = [[1, 0, 1, 1, 1, 0, 0, 0], [0, 1, 0, 1, 1, 1, 0, 0]]
+    lines = [_line(3_000_000 + i, "carve", {"s0": x, "s1": y, "s2": z})
+             for i, (x, y, z) in enumerate(zip(b, s1, s2))]
+    blk = hd.paired(lines)["tasks"]["L5M25"]["port/cuda"]["carve"]
+    assert list(blk["policies"]) == ["s1", "s2"] and list(blk["pairs"]) == ["s2 - s1"]
+    pair = blk["pairs"]["s2 - s1"]
+    d = [np.mean(z) - np.mean(y) for y, z in zip(s1, s2)]
+    assert pair["gap"]["mean"] == pytest.approx(np.mean(d))
+    assert pair["gap"]["sd"] == pytest.approx(np.std(d, ddof=1))
+    assert (pair["rows_only_this"], pair["rows_only_base"]) == (1, 4)
+    assert pair == hd.seed_gap([np.array(z, bool) for z in s2],
+                               [np.array(y, bool) for y in s1])
+
+
+def test_check_recorded_refuses_another_draw():
+    """``--check``: a rebuilt draw passes only if its row statistics and the
+    rows each shared policy won are its recorded line's."""
+    rec = _line(2_000_000, "beam", {"s0.npz": [1, 0, 1, 1, 0, 0, 1, 0, 1]})
+    rebuilt = _line(2_000_000, "beam", {"s0.npz": [1, 0, 1, 1, 0, 0, 1, 0, 1],
+                                        "s1.npz": [0, 0, 1, 1, 0, 0, 1, 0, 1]})
+    hd.check_recorded(rebuilt, rec)
+    flipped = _line(2_000_000, "beam", {"s0.npz": [1, 0, 1, 1, 0, 0, 1, 0, 0]})
+    with pytest.raises(SystemExit, match="s0.npz rows won"):
+        hd.check_recorded(flipped, rec)
+    other_stats = dict(rebuilt, stats={"rows": 9, "filled": {"3": 9}})
+    with pytest.raises(SystemExit, match="stats"):
+        hd.check_recorded(other_stats, rec)
+    with pytest.raises(SystemExit, match="no policy in common"):
+        hd.check_recorded(_line(2_000_000, "beam", {"s9.npz": [1] * 9}), rec)
+    with pytest.raises(SystemExit, match="no recorded line"):
+        hd.check_recorded(rebuilt, None)
+
+
+def _toy_policy(path: Path, seed: int) -> None:
+    hold = make_holdout_bank(1, 8, 16, device="cpu", forward_seed_budget=0)
+    train = ConfigBank(1, 8, capacity=16, seed=0, device="cpu").fill_device()
+    net = ConvQNetwork(channels=(4, 8), dueling=True, joint=True,
+                       generator=torch.Generator().manual_seed(seed))
+    ev = {"holdout": {"win_rate": 0.5, "build": hold.provenance},
+          "holdout_carve": {"win_rate": 0.5}, "holdout_forward": {"win_rate": 0.5}}
+    meta = {"L": 1, "M": 8, "step": 10, "eval": ev,
+            "net": {"model": "conv", "channels": [4, 8], "dueling": True, "joint": True}}
+    save_policy_npz(str(path), net.state_dict(), {"train": train, "holdout": hold}, meta)
+
+
+# per package: the families drawn (JAX's CPU jit of the training bank is
+# the slow part, so its case draws the holdout alone), and whether the case
+# also shows the rebuild stopping at a line of another draw
+TOY_RUNS = {"port": ("holdout,train", True), "jax": ("holdout", False)}
+
+
+@pytest.mark.parametrize("package", sorted(TOY_RUNS))
+def test_training_seeds_tool_toy(tmp_path, package):
+    """The second training seed's play at L=1/M=8, 2 seeds: draws recorded
+    with one policy, rebuilt with ``--check`` and played by two, and the
+    paired analysis of the lines; a recorded line that another draw would
+    give stops the rebuild."""
+    families, refusal = TOY_RUNS[package]
+    for seed in (2, 3):
+        _toy_policy(tmp_path / f"toy_s{seed}.npz", seed)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    base = [sys.executable, str(ROOT / "tools" / "holdout_draws.py"), "--package",
+            package, "--task", "L1M8", "--seeds", "0:2", "--holdout-rows", "32",
+            "--train-rows", "64", "--families", families,
+            "--policy", str(tmp_path / "toy_s2.npz")]
+    recorded, out = tmp_path / "holdout_draws_L1M8.jsonl", tmp_path / "seeds_L1M8.jsonl"
+
+    def run(*extra):
+        return subprocess.run(base + list(extra), capture_output=True, text=True,
+                              timeout=120, env=env, cwd=str(ROOT))
+
+    res = run("--out", str(recorded))
+    assert res.returncode == 0, res.stderr[-2000:]
+    res = run("--policy", str(tmp_path / "toy_s3.npz"), "--check", str(recorded),
+              "--out", str(out))
+    assert res.returncode == 0, res.stderr[-2000:]
+    rec = {hd.line_key(ln): ln for ln in hd.read_lines([recorded])}
+    lines = hd.read_lines([out])
+    fams = {"beam", "carve"} | ({"train"} if "train" in families else set())
+    assert len(lines) == 2 * len(fams)  # 2 seeds
+    for ln in lines:
+        assert list(ln["policies"]) == ["toy_s2.npz", "toy_s3.npz"]
+        assert ln["checked_against"] == os.path.relpath(recorded, ROOT)
+        assert ln["policies"]["toy_s2.npz"] == rec[hd.line_key(ln)]["policies"]["toy_s2.npz"]
+    assert hd.main(["--paired", str(out)]) == 0
+    got = json.loads((tmp_path / "seeds_L1M8_analysis.json").read_text())
+    side = got["tasks"]["L1M8"][f"{package}/cpu"]
+    assert set(side) == fams
+    for fam, blk in side.items():
+        gap = blk["policies"]["toy_s3.npz"]
+        fam_lines = [ln for ln in lines if ln["family"] == fam]
+        want = np.mean([ln["policies"]["toy_s3.npz"]["win_fraction"]
+                        - ln["policies"]["toy_s2.npz"]["win_fraction"] for ln in fam_lines])
+        assert blk["draws"] == 2 and gap["gap"]["mean"] == pytest.approx(want)
+    if not refusal:
+        return
+    # a recorded line of another draw: the rebuild stops before writing it
+    first = json.loads(recorded.read_text().splitlines()[0])
+    bits = bytearray.fromhex(first["policies"]["toy_s2.npz"]["won_hex"])
+    bits[0] ^= 0x80  # the first row's outcome flipped
+    first["policies"]["toy_s2.npz"]["won_hex"] = bits.hex()
+    recorded.write_text(json.dumps(first) + "\n")
+    res = run("--check", str(recorded), "--out", str(tmp_path / "refused.jsonl"))
+    assert res.returncode != 0 and "differs from its recorded line" in res.stderr
+    assert not (tmp_path / "refused.jsonl").exists()

@@ -903,3 +903,212 @@ def test_bf16_fwd_bwd_linear_gradients(shape):
         torch.nn.Linear.forward = forward
     torch.testing.assert_close(y, learning_probe.Bf16Linear.apply(
         x.detach(), lin.weight, lin.bias), rtol=0, atol=0)
+
+
+def _toy_policy_file(path, net_seed: int, rows_seed: int) -> None:
+    from tetris_piclim_tpu_torch.gen.bank import ConfigBank
+    from tetris_piclim_tpu_torch.models.convnet import ConvQNetwork
+    from tetris_piclim_tpu_torch.utils.checkpoint import save_policy_npz
+
+    net = ConvQNetwork(channels=(4, 8), dueling=True, joint=True,
+                       generator=torch.Generator().manual_seed(net_seed))
+    train = ConfigBank(1, 8, capacity=16, seed=0, device="cpu").fill_device()
+    hold = ConfigBank(1, 8, capacity=32, seed=rows_seed, device="cpu").fill_device(
+        forward_fraction=0.5)
+    n_fwd = hold.family_counts["forward"]
+    ev = {"holdout": {"win_rate": 0.5, "build": {"host_forward": 3,
+                                                 "device_forward": n_fwd - 3}},
+          "holdout_carve": {"win_rate": 0.5}, "holdout_forward": {"win_rate": 0.5}}
+    meta = {"L": 1, "M": 8, "step": 40,
+            "net": {"model": "conv", "channels": [4, 8], "dueling": True, "joint": True},
+            "eval": ev, "forward_by_provenance": None}
+    save_policy_npz(str(path), net.state_dict(), {"train": train, "holdout": hold}, meta)
+
+
+def test_holdout_rows_cross_play(tmp_path, monkeypatch, capsys):
+    """``tools/holdout_rows.py --cross``: every policy on every file's
+    held-out rows and on JAX's rows of the task, each row once; the
+    ``seed_gap`` lines are each policy's win fractions less the first's on
+    the same rows, and the rows only one of the two won."""
+    import numpy as np
+
+    import holdout_draws as hd
+    import holdout_rows
+    import learning_check as lc
+
+    from tetris_piclim_tpu_torch.ops.bitboard import unpack_board
+    from tetris_piclim_tpu_torch.utils.checkpoint import read_policy_npz
+
+    paths = [tmp_path / "p0.npz", tmp_path / "p1.npz"]
+    _toy_policy_file(paths[0], 5, 7)
+    _toy_policy_file(paths[1], 6, 8)
+    pols = [read_policy_npz(str(p)) for p in paths]
+    hold = pols[1]["banks"]["holdout"]
+    boards, pieces = unpack_board(hold.cols).numpy(), hold.pieces.numpy()
+    jax_rows = tmp_path / "jax_rows.npz"
+    np.savez_compressed(jax_rows, beam_boards=boards[:8], beam_pieces=pieces[:8],
+                        carve_boards=boards[8:], carve_pieces=pieces[8:],
+                        host_boards=boards[20:24], host_pieces=pieces[20:24])
+    monkeypatch.setattr(lc, "JAX_ROWS", {(1, 8): jax_rows})
+    monkeypatch.setattr(lc, "JAX_HOST_ROWS", (0, 2))
+    assert holdout_rows.main([str(p) for p in paths] + ["--cross"]) == 0
+    out = [json.loads(t) for t in capsys.readouterr().out.splitlines()]
+    gaps = [ln["seed_gap"] for ln in out if "seed_gap" in ln]
+    plays = [ln for ln in out if "seed_gap" not in ln]
+    assert len(plays) == 6 and len(gaps) == 3  # 2 policies x (2 files + JAX's rows)
+    nets = [holdout_rows.policy_net(p, torch.device("cpu")) for p in pols]
+    # policy 0 on file 1's rows: each row once
+    won = hd.play(nets[0], boards, pieces, 1, 8, "cpu")
+    cross = next(ln for ln in plays if ln["policy"].endswith("p0.npz")
+                 and ln["rows_of"].endswith("p1.npz"))
+    assert cross["all"] == {"rows": 32, "won": int(won.sum()),
+                            "win_fraction": float(won.mean())}
+    won1 = hd.play(nets[1], boards, pieces, 1, 8, "cpu")
+    on1 = next(g for g in gaps if g["rows_of"].endswith("p1.npz"))
+    assert on1["base"].endswith("p0.npz")
+    g = on1["policies"][next(iter(on1["policies"]))]["all"]
+    assert g["gap"]["mean"] == pytest.approx(won1.mean() - won.mean())
+    assert (g["rows_only_this"], g["rows_only_base"]) == (
+        int((won1 & ~won).sum()), int((~won1 & won).sum()))
+    # JAX's rows: the forward family of h host rows is host[:h] + beam[:8 - h]
+    on_jax = next(g for g in gaps if g["rows_of"].endswith("jax_rows.npz"))
+    fwd = on_jax["policies"][next(iter(on_jax["policies"]))]["forward_h2"]
+    f0 = np.concatenate([won[20:22], won[:6]])
+    f1 = np.concatenate([won1[20:22], won1[:6]])
+    assert fwd["rows"] == 8 and fwd["gap"]["mean"] == pytest.approx(f1.mean() - f0.mean())
+
+
+def test_ckpt_pack_round_trip(tmp_path, capsys):
+    """``tools/ckpt_pack.py``: a trainer checkpoint packed and unpacked
+    loads back word for word (weights, moments, ring, envs, generators,
+    counters, bank rows), and is smaller than the directory."""
+    import ckpt_pack
+
+    _, ckpt, _ = _tiny_run(tmp_path)
+    packed = tmp_path / "ckpt.xz"
+    assert ckpt_pack.main(["pack", ckpt, str(packed)]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["files"] == ["bank.pt", "state.pt"]
+    assert res["packed_bytes"] == packed.stat().st_size < res["bytes"]
+    back = tmp_path / "back"
+    assert ckpt_pack.main(["unpack", str(packed), str(back)]) == 0
+    for name in ("state.pt", "bank.pt"):
+        a = torch.load(Path(ckpt) / name, weights_only=True)
+        b = torch.load(back / name, weights_only=True)
+        assert ckpt_pack.same(a, b)
+    a = torch.load(Path(ckpt) / "state.pt", weights_only=True)
+    assert a["global_step"] == 0 and a["replay"] and a["opt"] and a["gen"].dtype == torch.uint8
+    # the check sees a flipped bit, a dtype and a container type
+    w = next(iter(a["net"].values()))
+    flipped = w.clone()
+    flipped.view(-1).view(torch.int32)[0] ^= 1
+    assert not ckpt_pack.same(w, flipped)
+    assert not ckpt_pack.same(w, w.double())
+    assert not ckpt_pack.same([1, 2], (1, 2))
+
+
+def test_seed_pilot_verdict(tmp_path, monkeypatch, capsys):
+    """``tools/seed_pilot.py`` on stub runs: each run's rate together over
+    seed 1's rate alone, seed 1's rows both ways, and every checkpoint
+    deleted."""
+    import seed_pilot
+
+    def command(seed, out, extra):
+        code = ("import json, os, sys, torch; out = sys.argv[1]; "
+                "os.makedirs(out + '/ckpt/final'); "
+                "torch.save({'w': torch.ones(64)}, out + '/ckpt/final/state.pt'); "
+                "rate = float(sys.argv[2]); "
+                "json.dump({'env_steps_per_s': rate, 'wall_s': 1.0, 'card': None, "
+                "'rows': [{'step': 1000, 'port_win_rate': 0.0 if sys.argv[3] == '1' "
+                "else 0.5, 'port_loss': 0.1, 'port_sps': rate}]}, "
+                "open(out + '/result.json', 'w'))")
+        together = out.parent.name == "together"
+        rate = {1: 90.0, 2: 70.0}[seed] if together else 100.0
+        return [sys.executable, "-c", code, str(out), str(rate), str(seed)]
+
+    monkeypatch.setattr(seed_pilot, "command", command)
+    assert seed_pilot.main(["--out", str(tmp_path)]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["seeds"] == [1, 2] and res["steps"] == 3000
+    assert res["share_of_alone"] == {"1": 0.9, "2": 0.7}
+    assert not res["share_ok"] and res["rows_equal"] and res["steps_compared"] == [1000]
+    assert res["together"]["runs"]["2"]["sps_by_chunk"] == [70.0]
+    assert not list(tmp_path.glob("*/s*/ckpt"))
+    assert json.loads((tmp_path / "pilot.json").read_text()) == res
+    row = [(1000, 0.0, 0.1)]
+    ok = seed_pilot.verdict({"runs": {1: {"env_steps_per_s": 80.0, "rows": row}}},
+                            {"runs": {1: {"env_steps_per_s": 100.0, "rows": row}}}, 1)
+    assert ok["share_ok"] and ok["rows_equal"]  # 0.8 of the rate alone is enough
+
+
+def test_seed_spread_leave_one_out(tmp_path, capsys):
+    """``tools/seed_spread.py``: per row, the seeds' mean and sd with the sd's
+    95% chi-square interval and JAX's z, and the same with each seed left
+    out, with that seed's z against the others; a run that stops early
+    counts only in the rows it reached."""
+    import numpy as np
+    import seed_spread
+    from scipy import stats
+
+    def result(seed, train, held):
+        steps = (25000, 50000)
+        return {"seed": seed, "band": {"training": [
+                    {"step": st, "port": v, "jax": 0.4} for st, v in zip(steps, train)]},
+                "held_out": None if held is None else {"rows": {
+                    "holdout": {"port": held, "jax": 0.8},
+                    "carve": {"port": None, "jax": 0.84}}}}
+
+    runs = [result(0, [0.1, 0.40], 0.78), result(1, [0.2, 0.42], 0.76),
+            result(2, [0.0, 0.22], 0.74), result(3, [0.15, None], None)]
+    files = []
+    for r in runs:
+        files.append(tmp_path / f"s{r['seed']}.json")
+        files[-1].write_text(json.dumps(r))
+    out = tmp_path / "spread.json"
+    assert seed_spread.main([str(f) for f in files] + ["--out", str(out)]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert json.loads(out.read_text()) == res
+    rows = res["rows"]
+    assert set(rows) == {"training_25k", "training_50k", "holdout"}
+    assert rows["training_25k"]["seeds"] == {"0": 0.1, "1": 0.2, "2": 0.0, "3": 0.15}
+    x = np.array([0.40, 0.42, 0.22])
+    a = rows["training_50k"]["all"]
+    assert a["n"] == 3 and a["mean"] == pytest.approx(x.mean())
+    assert a["sd"] == pytest.approx(x.std(ddof=1))
+    assert a["sd_95"] == pytest.approx([x.std(ddof=1) * np.sqrt(2 / stats.chi2.ppf(q, 2))
+                                        for q in (0.975, 0.025)])
+    assert a["jax_z"] == pytest.approx((0.4 - x.mean()) / x.std(ddof=1))
+    loo = rows["training_50k"]["leave_one_out"]["2"]
+    assert loo["n"] == 2 and loo["mean"] == pytest.approx(0.41)
+    assert loo["z_of_left_out"] == pytest.approx((0.22 - 0.41) / np.std([0.4, 0.42], ddof=1))
+    assert rows["holdout"]["jax"] == 0.8 and rows["holdout"]["all"]["n"] == 3
+    # two results of one seed are refused
+    with pytest.raises(SystemExit):
+        seed_spread.main([str(files[0]), str(files[0]), "--out", str(out)])
+
+
+def test_flagship_policy_carries_the_run_seed(tmp_path, capsys):
+    """``tools/flagship_policy.py`` on a toy run: the newest reading's rows
+    and the checkpoint's net in one file, with the run's training seed
+    (from ``OUT/result.json``, 0 where the run has none), which ``cli
+    eval``'s draws follow."""
+    import flagship_policy
+
+    from tetris_piclim_tpu_torch.utils.checkpoint import read_policy_npz, save_bank
+
+    trainer, ckpt, _ = _tiny_run(tmp_path)
+    hold = trainer.bank.__class__(1, 8, capacity=16, seed=11, device="cpu").fill_device()
+    save_bank(str(tmp_path / "holdout_0"), hold)
+    ev = {"holdout": {"win_rate": 0.5, "families": hold.family_counts,
+                      "build": {"host_forward": 0, "device_forward": 0}},
+          "holdout_carve": {"win_rate": 0.5}, "holdout_forward": {"win_rate": 0.5}}
+    (tmp_path / "holdout_0.json").write_text(json.dumps(
+        {"step": 0, "source": "eval", "card": None, "eval": ev}))
+    for seed, want in ((None, 0), (3, 3)):
+        if seed is not None:
+            (tmp_path / "result.json").write_text(json.dumps({"seed": seed}))
+        out = tmp_path / f"policy_{want}.npz"
+        assert flagship_policy.main([str(tmp_path), "--out", str(out)]) == 0
+        meta = read_policy_npz(str(out))["meta"]
+        assert meta["seed"] == want and meta["step"] == 0
+        assert json.loads(capsys.readouterr().out)["holdout_rows"] == 16

@@ -13,7 +13,9 @@ that checkpoint, ``OUT/holdout_<step>.json`` with its rows in
 ``utils/checkpoint.py::save_policy_npz``: the online conv net's 1,681,321
 float32 parameters under the port's ``state_dict`` names, the 4096
 training-bank rows, the 2048 held-out rows with their family labels, and
-under ``meta`` the task, the step, the net's widths and the recorded
+under ``meta`` the task, the step, the run's training seed (from
+``OUT/result.json``; ``cli eval`` draws its episodes from it), the net's
+widths and the recorded
 held-out evaluation (win rates in all, per family and on the training
 bank, family counts, the rows' provenance, the forward win rate split by
 provenance where the reading has it, the card). ``tests/test_torch_flagship_policy.py`` holds
@@ -68,7 +70,9 @@ def main(argv=None) -> int:
     if overlap:
         raise SystemExit(f"{len(overlap)} held-out rows are training rows")
     n_params = sum(v.numel() for v in state["net"].values())
-    meta = {"L": train.L, "M": train.M, "step": step, "net": NET,
+    record = run / "result.json"  # the run's training seed, which cli eval's draws follow
+    seed = json.loads(record.read_text()).get("seed", 0) if record.exists() else 0
+    meta = {"L": train.L, "M": train.M, "step": step, "seed": seed, "net": NET,
             "n_params": n_params, "updates_done": int(state["updates_done"]),
             "card": reading["card"], "reading_source": reading["source"],
             "eval": reading["eval"],

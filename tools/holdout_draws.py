@@ -5,6 +5,9 @@ the tests that hold the port's draws against JAX's in distribution.
         --task L5M25 [--seeds 0:16] [--families holdout,train] [--reference]
     JAX_PLATFORMS=cpu python3 tools/holdout_draws.py --package jax --task L5M25
     python3 tools/holdout_draws.py --analyze [--seeds A:B] [--dir DIR]
+    python3 tools/holdout_draws.py --package jax|port ... --policy NPZ ...
+        --check RECORDED.jsonl --out FILE.jsonl
+    python3 tools/holdout_draws.py --paired FILE.jsonl
 
 A draw is one bank built from one seed, as the package builds it:
 
@@ -54,6 +57,25 @@ index, the per-draw variance of the rows won over its binomial value,
 against 1 by chi-square, and the variance ratio of the two sides by F),
 Holm-adjusted among themselves; and the reference bank's win fraction with
 its z-score within its side's draws.
+
+``--check RECORDED`` rebuilds draws that an earlier run recorded and plays
+the ``--policy`` files on them: each rebuilt bank's line must equal its
+recorded line (same task, package, device, family and seed) in the row
+statistics and, for every policy both lines hold, in the rows won
+(``won_hex``); else the tool stops before it writes the line. So new
+policies (another training seed of a run) are played on exactly the rows
+the recorded policies were played on. Write such lines to a file outside
+``--analyze``'s glob (``results/training_seeds_L5M25.jsonl``), so that the
+recorded analysis reads what it read.
+
+``--paired FILE`` reads such a file and writes ``FILE``'s stem +
+``_analysis.json`` beside it: per task, side (and both sides together)
+and family, for each policy against the lines' first policy (the base),
+the per-draw difference of their win fractions on the same rows, its mean,
+standard deviation and standard error over the draws, a paired t test's
+p-value, and the rows only one of the two won; the same in ``pairs`` for
+each later policy against each other one before it. The bank's draw
+cancels in the pairing: what is left is the gap between the two policies.
 """
 
 from __future__ import annotations
@@ -313,6 +335,29 @@ def card() -> Optional[str]:
         return None
 
 
+def line_key(line: dict) -> tuple:
+    return (line["task"], line["package"], line["device"], line["family"], line["seed"])
+
+
+def check_recorded(line: dict, recorded: Optional[dict]) -> None:
+    """Stop unless a rebuilt bank's line is its recorded one: the same row
+    statistics (and beam yield), and the same rows won by every policy
+    both lines hold (at least one)."""
+    where = f"the rebuilt {line['family']} draw at seed {line['seed']} ({side_of(line)})"
+    if recorded is None:
+        raise SystemExit(f"{where} has no recorded line")
+    bad = [k for k in ("stats", "beam", "forward_rows")
+           if json.loads(json.dumps(line[k])) != recorded.get(k)]
+    shared = sorted(set(line["policies"]) & set(recorded["policies"]))
+    if not shared:
+        bad.append("no policy in common")
+    bad += [f"{name} rows won" for name in shared
+            if (line["policies"][name]["rows"], line["policies"][name]["won_hex"])
+            != (recorded["policies"][name]["rows"], recorded["policies"][name]["won_hex"])]
+    if bad:
+        raise SystemExit(f"{where} differs from its recorded line in: {', '.join(bad)}")
+
+
 def draw(a: argparse.Namespace) -> int:
     L, M = task_of(a.task)
     families = a.families.split(",")
@@ -333,6 +378,8 @@ def draw(a: argparse.Namespace) -> int:
     smi = card() if device == "cuda" else None
     out = Path(a.out or RESULTS / f"holdout_draws_{a.task}.jsonl")
     out.parent.mkdir(parents=True, exist_ok=True)
+    recorded = ({line_key(ln): ln for ln in read_lines([a.check])}
+                if a.check else None)
     for seed, train_seed in seeds:
         fams = [f for f in families if train_seed is not None or f == "holdout"]
         if a.package == "port":
@@ -358,6 +405,9 @@ def draw(a: argparse.Namespace) -> int:
                                         "win_fraction": float(w.mean()) if w.size else None,
                                         "won_hex": np.packbits(w).tobytes().hex()}
                                  for name, w in won.items()}}
+            if recorded is not None:
+                check_recorded(line, recorded.get(line_key(line)))
+                line["checked_against"] = os.path.relpath(Path(a.check).resolve(), ROOT)
             with out.open("a") as f:
                 f.write(json.dumps(line) + "\n")
             print(json.dumps({k: line[k] for k in ("task", "package", "device", "family",
@@ -378,8 +428,7 @@ def read_lines(paths) -> list[dict]:
         for text in Path(path).read_text().splitlines():
             if text.strip():
                 ln = json.loads(text)
-                keep[(ln["task"], ln["package"], ln["device"], ln["family"],
-                      ln["seed"])] = ln
+                keep[line_key(ln)] = ln
     return list(keep.values())
 
 
@@ -613,6 +662,62 @@ def reference_z(ref: dict, draws: list[dict]) -> dict:
     return out
 
 
+def seed_gap(won: list, base: list) -> dict:
+    """One policy against the base on the same draws: ``won`` and ``base``
+    hold, per draw, bool[rows] of the rows each won. The per-draw
+    difference of the win fractions (mean, sd, standard error, a paired t
+    test's two-sided p) and the rows only one of the two won, pooled."""
+    from scipy import stats
+
+    d = np.array([w.mean() - b.mean() for w, b in zip(won, base)])
+    k = d.size
+    sd = float(d.std(ddof=1)) if k > 1 else None
+    se = sd / math.sqrt(k) if sd is not None else None
+    if se is None:
+        p = None
+    elif se == 0:  # every draw the same gap
+        p = 1.0 if d.mean() == 0 else 0.0
+    else:
+        p = float(2 * stats.t.sf(abs(d.mean()) / se, k - 1))
+    return {"draws": k, "rows": int(sum(w.size for w in won)),
+            "win": spread(np.array([w.mean() for w in won])),
+            "gap": {"mean": float(d.mean()), "sd": sd, "se": se, "paired_t_p": p,
+                    "min": float(d.min()), "max": float(d.max())},
+            "rows_only_this": int(sum((w & ~b).sum() for w, b in zip(won, base))),
+            "rows_only_base": int(sum((~w & b).sum() for w, b in zip(won, base)))}
+
+
+def paired(lines: list[dict]) -> dict:
+    """Per task, side (and ``all``: every side's draws) and family, each
+    policy of the lines against their first policy on the same rows
+    (:func:`seed_gap`), and in ``pairs`` each later policy against each
+    other one before it (``"B - A"``); reference banks are left out."""
+    res = {"tasks": {}}
+    for task in sorted({ln["task"] for ln in lines}):
+        tl = sorted((ln for ln in lines if ln["task"] == task and not ln["reference"]),
+                    key=lambda ln: (side_of(ln), ln["seed"]))
+        out = {}
+        for side in sorted({side_of(ln) for ln in tl}) + ["all"]:
+            for fam in ("beam", "carve", "train"):
+                ls = [ln for ln in tl if ln["family"] == fam
+                      and side in ("all", side_of(ln))]
+                if not ls:
+                    continue
+                names = list(ls[0]["policies"])
+                if any(list(ln["policies"]) != names for ln in ls):
+                    raise SystemExit(f"{task} {side} {fam}: the lines hold other policies")
+                won = {n: [won_rows(ln["policies"][n]) for ln in ls] for n in names}
+                base = won[names[0]]
+                out.setdefault(side, {})[fam] = {
+                    "base": names[0], "draws": len(ls),
+                    "base_win": spread(np.array([b.mean() for b in base])),
+                    "policies": {n: seed_gap(won[n], base) for n in names[1:]},
+                    "pairs": {f"{n} - {m}": seed_gap(won[n], won[m])
+                              for i, m in enumerate(names[1:], 1) for n in names[i + 1:]}}
+        res["tasks"][task] = out
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--package", choices=["port", "jax"])
@@ -629,10 +734,21 @@ def main(argv=None) -> int:
     p.add_argument("--holdout-rows", type=int, default=HOLDOUT_ROWS)
     p.add_argument("--train-rows", type=int, default=TRAIN_ROWS)
     p.add_argument("--out", help="JSON lines file (default results/holdout_draws_<task>.jsonl)")
+    p.add_argument("--check", metavar="RECORDED",
+                   help="stop unless each rebuilt draw equals its line in this file")
+    p.add_argument("--paired", metavar="FILE",
+                   help="the policies' gaps to the first one on the same rows")
     p.add_argument("--analyze", action="store_true")
     p.add_argument("--dir", default=str(RESULTS),
                    help="where --analyze reads the draws and writes its result")
     a = p.parse_args(argv)
+    if a.paired:
+        src = Path(a.paired)
+        text = json.dumps({"lines": os.path.relpath(src.resolve(), ROOT),
+                           **paired(read_lines([src]))})
+        (src.parent / f"{src.stem}_analysis.json").write_text(text + "\n")
+        print(text, flush=True)
+        return 0
     if a.analyze:
         d = Path(a.dir)
         seeds = tuple(int(x) for x in a.seeds.split(":")) if a.seeds else None

@@ -549,13 +549,23 @@ def forward_by_provenance(a: argparse.Namespace, ckpt: str, holdout_dir: str,
 
 def on_jax_rows(a: argparse.Namespace, ckpt: str) -> Optional[dict]:
     """``ckpt``'s policy played once, greedy, on each of JAX's own held-out
-    rows of the task (``JAX_ROWS``; None where the task has none): JAX's
-    beam rows and carves under its key, and its host DFS rows in order. A
-    JAX bank whose host proved h rows holds its first h host rows and its
-    first 1024 - h beam rows, so for each h of ``JAX_HOST_ROWS`` this
-    gives the forward family's win fraction and, with the carves, the
-    held-out bank's."""
-    path = JAX_ROWS.get((a.lines, a.moves))
+    rows of the task (:func:`play_jax_rows`)."""
+    if JAX_ROWS.get((a.lines, a.moves)) is None:
+        return None
+    net = eval_trainer(a, ckpt, a.lines, a.moves).state.net
+    return play_jax_rows(net, a.lines, a.moves, a.device)
+
+
+def play_jax_rows(net, L: int, M: int, device, keep_won: bool = False) -> Optional[dict]:
+    """``net`` played once, greedy, on each of JAX's own held-out rows of
+    the task (``JAX_ROWS``; None where the task has none): JAX's beam rows
+    and carves under its key, and its host DFS rows in order. A JAX bank
+    whose host proved h rows holds its first h host rows and its first
+    1024 - h beam rows, so for each h of ``JAX_HOST_ROWS`` this gives the
+    forward family's win fraction and, with the carves, the held-out
+    bank's. ``keep_won`` adds ``won``: each part's rows won as bool
+    arrays, the forward family and the whole bank of each h included."""
+    path = JAX_ROWS.get((L, M))
     if path is None or not path.exists():
         return None
     import numpy as np
@@ -563,16 +573,16 @@ def on_jax_rows(a: argparse.Namespace, ckpt: str) -> Optional[dict]:
     sys.path.insert(0, str(ROOT / "tools"))
     from holdout_draws import play
 
-    net = eval_trainer(a, ckpt, a.lines, a.moves).state.net
     with np.load(path) as z:
-        won = {part: play(net, z[f"{part}_boards"], z[f"{part}_pieces"], a.lines,
-                          a.moves, a.device) for part in ("beam", "carve", "host")}
+        won = {part: play(net, z[f"{part}_boards"], z[f"{part}_pieces"], L, M, device)
+               for part in ("beam", "carve", "host")}
     out = {"rows": os.path.relpath(path, ROOT)}
     for part, w in won.items():
         out[part] = {"rows": int(w.size), "won": int(w.sum()),
                      "win_fraction": float(w.mean()) if w.size else None}
     n_fwd = won["beam"].size
     out["by_host_rows"] = []
+    parts = dict(won)
     for h in JAX_HOST_ROWS:
         h = min(h, won["host"].size)
         fwd = int(won["host"][:h].sum()) + int(won["beam"][:n_fwd - h].sum())
@@ -580,6 +590,10 @@ def on_jax_rows(a: argparse.Namespace, ckpt: str) -> Optional[dict]:
             "host_rows": h, "forward_win_fraction": fwd / n_fwd,
             "holdout_win_fraction": (fwd + int(won["carve"].sum()))
             / (n_fwd + won["carve"].size)})
+        parts[f"forward_h{h}"] = np.concatenate([won["host"][:h], won["beam"][:n_fwd - h]])
+        parts[f"holdout_h{h}"] = np.concatenate([parts[f"forward_h{h}"], won["carve"]])
+    if keep_won:
+        out["won"] = parts
     return out
 
 
