@@ -13,7 +13,10 @@ drives the port's two paths through the entry points a user calls:
 2. the DQN trainer at full width (L=2, M=20, 4096 envs, 4096-row device
    bank, 131072-transition replay, batch 128, ``actor_fusion=8``), then a
    1024-episode greedy evaluation and a checkpoint round trip; and, for
-   comparison, the same recipe on the per-step path (``actor_fusion=0``);
+   comparison, the same recipe on the per-step path (``actor_fusion=0``),
+   whose bank's fill must carve from a generator seeded by one draw of the
+   bank's ``random.Random`` (as JAX draws its key) and whose trainer must
+   not draw the fill's reset rows;
 3. the device forward generator and beam prover (n=1024 at L=2/M=20 and
    L=10/M=30, beam 8, height 4): timed, every winner replayed to WIN on the
    card, and 256 candidates proven on the card and on the CPU with
@@ -58,7 +61,8 @@ drives the port's two paths through the entry points a user calls:
     envs, conv (32,64) + dueling + joint with a bf16 torso, L=5/M=25, a
     1024-row device bank, 4 updates per step) with its chunk cut from 512
     steps to 32: the card's BF16 peak is known, and the chunk, learner and
-    actor MFU each lie in (0, 1]; then a tiny ``cli train --profile-dir``
+    actor MFU each lie in (0, 1], and the learner's share of the chunk,
+    read from the trainer's clock inside it, in (0, 1.05]; then a tiny ``cli train --profile-dir``
     whose ``torch.profiler`` trace parses and holds CUDA kernel events;
 16. data-parallel training over ``torch.distributed``: a one-rank NCCL
     mesh word for word against no mesh, and two gloo ranks sharing the card
@@ -562,8 +566,32 @@ def phase_trainer_per_step() -> dict:
     plain PyTorch actor, one learner update per env step as in the fused
     path's K updates per K steps)."""
     print("per-step trainer (actor_fusion 0), same recipe")
-    bank = ConfigBank(2, 20, capacity=4096, seed=0, device=DEV).fill_device()
+    seen = []
+    carve = device_carver.generate_batch_device
+
+    def spy(*args, generator=None, **kw):
+        seen.append(generator.initial_seed())
+        return carve(*args, generator=generator, **kw)
+
+    device_carver.generate_batch_device = spy
+    try:
+        bank = ConfigBank(2, 20, capacity=4096, seed=0, device=DEV).fill_device()
+    finally:
+        device_carver.generate_batch_device = carve
+    fill_seed = random.Random(0).randint(0, 2**31 - 1)
+    check(seen == [fill_seed], f"the bank's fill carved from a generator seeded "
+          f"{seen}, one draw of the bank's random.Random(0): {fill_seed}")
     trainer = DQNTrainer(train_config(0, 2, 32), bank=bank, device=DEV)
+
+    def first_resets(seed: int) -> torch.Tensor:
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return torch.randint(0, 4096, (4096,), generator=gen, device=DEV)
+
+    trainer_seed = trainer.state.gen.initial_seed()
+    check(trainer_seed != fill_seed
+          and not torch.equal(first_resets(trainer_seed), first_resets(fill_seed)),
+          f"the trainer's stream (seed {trainer_seed}) is not the fill's: its first "
+          f"4096 reset rows differ from those the fill's generator would draw")
     last = trainer.train(log_fn=lambda m: print("  " + m))["history"][-1]
     check(np.isfinite(last["loss"]) and trainer.state.updates_done > 0,
           "per-step path trains")

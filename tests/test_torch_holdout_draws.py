@@ -196,7 +196,7 @@ def test_row_stats_against_hand_counts():
 
 LINE_KEYS = {"tool", "task", "L", "M", "package", "device", "card", "family", "seed",
              "reference", "build_s", "play_s", "stats", "beam", "forward_rows",
-             "flagship_beam_rows_equal", "policies"}
+             "flagship_beam_rows_equal", "bank_stream", "policies"}
 
 
 def test_holdout_draws_tool_toy(tmp_path):
@@ -226,6 +226,9 @@ def test_holdout_draws_tool_toy(tmp_path):
     assert len(lines) == 12  # 2 packages x 2 seeds x (beam, carve, train)
     for ln in lines:
         assert set(ln) == LINE_KEYS
+        # the port's training banks say how their device stream was seeded
+        port_train = (ln["package"], ln["family"]) == ("port", "train")
+        assert ln["bank_stream"] == ("jax_order" if port_train else None)
         assert ln["card"] is None and ln["device"] == "cpu" and not ln["reference"]
         pol = ln["policies"]["toy_policy.npz"]
         assert pol["rows"] == ln["stats"]["rows"]

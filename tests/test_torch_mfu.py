@@ -223,6 +223,15 @@ def test_bench_mfu_measure_small_on_cpu():
     assert res["chunk_env_steps_per_s"] > 0 and res["learner_s_per_chunk_equiv"] > 0
 
 
+def test_bench_mfu_learner_share_from_one_clock():
+    """The learner's share of the chunk comes from the trainer's clock
+    inside the timed chunk, so it lies in (0, 1]; 1024 envs fill the
+    1000-transition warmup in the first step, so every timed chunk learns."""
+    res = bench_mfu.measure(num_envs=1024, scan=1, updates=1, bf16=True,
+                            device="cpu")
+    assert 0 < res["learner_share_of_chunk"] <= 1
+
+
 def test_bench_run_train_keys_and_guard(monkeypatch, capsys):
     calls = []
 

@@ -1008,10 +1008,13 @@ def test_ckpt_pack_round_trip(tmp_path, capsys):
 
 
 def test_seed_pilot_verdict(tmp_path, monkeypatch, capsys):
-    """``tools/seed_pilot.py`` on stub runs: each run's rate together over
-    seed 1's rate alone, seed 1's rows both ways, and every checkpoint
-    deleted."""
+    """``tools/seed_pilot.py`` on stub runs: each layout's runs' rates over
+    the rate alone, the best layout whose every run keeps ``SHARE`` of it,
+    every seed's rows in all its runs, and every checkpoint deleted."""
     import seed_pilot
+
+    rates = {"together3": {0: 80.0, 1: 75.0, 2: 70.0},
+             "together4": {0: 62.0, 1: 61.0, 2: 60.0, 3: 55.0}}
 
     def command(seed, out, extra):
         code = ("import json, os, sys, torch; out = sys.argv[1]; "
@@ -1019,26 +1022,106 @@ def test_seed_pilot_verdict(tmp_path, monkeypatch, capsys):
                 "torch.save({'w': torch.ones(64)}, out + '/ckpt/final/state.pt'); "
                 "rate = float(sys.argv[2]); "
                 "json.dump({'env_steps_per_s': rate, 'wall_s': 1.0, 'card': None, "
-                "'rows': [{'step': 1000, 'port_win_rate': 0.0 if sys.argv[3] == '1' "
-                "else 0.5, 'port_loss': 0.1, 'port_sps': rate}]}, "
+                "'rows': [{'step': 1000, 'port_win_rate': float(sys.argv[3]) / 10, "
+                "'port_loss': 0.1, 'port_sps': rate}]}, "
                 "open(out + '/result.json', 'w'))")
-        together = out.parent.name == "together"
-        rate = {1: 90.0, 2: 70.0}[seed] if together else 100.0
+        rate = rates.get(out.parent.name, {}).get(seed, 100.0)
         return [sys.executable, "-c", code, str(out), str(rate), str(seed)]
 
     monkeypatch.setattr(seed_pilot, "command", command)
     assert seed_pilot.main(["--out", str(tmp_path)]) == 0
     res = json.loads(capsys.readouterr().out)
-    assert res["seeds"] == [1, 2] and res["steps"] == 3000
-    assert res["share_of_alone"] == {"1": 0.9, "2": 0.7}
-    assert not res["share_ok"] and res["rows_equal"] and res["steps_compared"] == [1000]
-    assert res["together"]["runs"]["2"]["sps_by_chunk"] == [70.0]
+    assert res["steps"] == 3000 and res["share_needed"] == 0.6
+    three, four = res["layouts"]
+    assert three["seeds"] == [0, 1, 2] and four["seeds"] == [0, 1, 2, 3]
+    assert three["share_of_alone"] == {"0": 0.8, "1": 0.75, "2": 0.7}
+    assert three["ok"] and not four["ok"]  # seed 3 keeps 0.55 of the rate alone
+    assert three["total_of_alone"] == pytest.approx(2.25)
+    assert four["total_of_alone"] == pytest.approx(2.38)
+    assert res["best"] == 3 and res["rows_equal"] and res["steps_compared"] == [1000]
+    assert res["runs_by_seed"] == {"0": 3, "1": 2, "2": 2, "3": 1}
+    assert four["runs"]["3"]["sps_by_chunk"] == [55.0]
     assert not list(tmp_path.glob("*/s*/ckpt"))
     assert json.loads((tmp_path / "pilot.json").read_text()) == res
-    row = [(1000, 0.0, 0.1)]
-    ok = seed_pilot.verdict({"runs": {1: {"env_steps_per_s": 80.0, "rows": row}}},
-                            {"runs": {1: {"env_steps_per_s": 100.0, "rows": row}}}, 1)
-    assert ok["share_ok"] and ok["rows_equal"]  # 0.8 of the rate alone is enough
+
+    def lay(seeds, rate, loss=0.1):
+        return {"seeds": list(seeds), "runs": {s: {"env_steps_per_s": rate,
+                                                    "rows": [(1000, s / 10, loss)]}
+                                               for s in seeds}}
+
+    alone = lay((0,), 100.0)
+    ok = seed_pilot.verdict([lay((0, 1, 2), 60.0), lay((0, 1, 2, 3), 60.0)], alone)
+    assert ok["best"] == 4 and ok["rows_equal"]  # 0.6 of the rate alone is enough
+    parted = seed_pilot.verdict([lay((0, 1, 2), 70.0, loss=0.2)], alone)
+    assert not parted["rows_equal"]  # seed 0's rows differ from its run alone
+    assert seed_pilot.verdict([lay((0, 1, 2), 50.0)], alone)["best"] is None
+
+
+def _stream_result(seed, values, stream=None):
+    """A learning-check result whose chunk rows read ``values`` at 25k and
+    50k (JAX 0.1 and 0.4)."""
+    rows = [{"step": st, "port_win_rate": v, "jax_win_rate": j}
+            for st, v, j in zip((25000, 50000), values, (0.1, 0.4))]
+    res = {"seed": seed, "rows": rows, "held_out": None,
+           "band": {"training": [{"step": r["step"], "port": r["port_win_rate"],
+                                  "jax": r["jax_win_rate"]} for r in rows]}}
+    if stream is not None:
+        res["bank_stream"] = stream
+    return res
+
+
+@pytest.mark.parametrize("case", ["c_open", "a_slow_seed", "a_within", "b_apart"])
+def test_seed_spread_streams_and_c2_rule(case, tmp_path, capsys):
+    """``tools/seed_spread.py`` with results of both bank streams: each
+    stream's curve, Welch and the exact permutation test at 25k and 50k,
+    the old seeds' z against the new ones, JAX's z against each group, and
+    the rule for C-2."""
+    import numpy as np
+    import seed_spread
+    from scipy import stats
+
+    old50 = [0.40, 0.42, 0.22, 0.50, 0.44]
+    new50 = {"c_open": [0.42, 0.45, 0.40, 0.47, 0.43, 0.44],
+             "a_slow_seed": [0.42, 0.45, 0.29, 0.47, 0.43, 0.44],
+             "a_within": [0.42, 0.25 + 0.06, 0.60, 0.47, 0.33, 0.44],
+             "b_apart": [0.60, 0.62, 0.61, 0.63, 0.60, 0.62]}[case]
+    if case == "b_apart":
+        old50 = [0.40, 0.42, 0.36, 0.38, 0.41]
+    files = []
+    for i, v in enumerate(old50):
+        files.append(tmp_path / f"old{i}.json")
+        files[-1].write_text(json.dumps(_stream_result(i, [v / 4, v])))
+    for i, v in enumerate(new50):
+        files.append(tmp_path / f"new{i}.json")
+        files[-1].write_text(json.dumps(_stream_result(i, [v / 4, v], "jax_order")))
+    out = tmp_path / "spread.json"
+    assert seed_spread.main([str(f) for f in files] + ["--out", str(out)]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert set(res["groups"]) == {"bank_seed", "jax_order"}
+    assert res["groups"]["jax_order"]["seeds"] == list(range(6))
+    assert res["rows"] == res["groups"]["jax_order"]["rows"]
+    c = res["curve"]["jax_order"]["50000"]
+    assert c["n"] == 6 and c["mean"] == pytest.approx(np.mean(new50))
+    t = res["streams"]["tests"]["50000"]
+    x, y = np.array(old50), np.array(new50)
+    assert t["welch_p"] == pytest.approx(stats.ttest_ind(x, y, equal_var=False).pvalue)
+    assert 0 < t["permutation_p"] <= 1
+    assert t["z_against_new"]["2"] == pytest.approx((old50[2] - y.mean()) / y.std(ddof=1))
+    assert t["jax_z"]["new"] == pytest.approx((0.4 - y.mean()) / y.std(ddof=1))
+    assert set(res["streams"]["tests"]) == {"25000", "50000"}
+    assert res["streams"]["c2"]["verdict"] == case[0]
+    # one seed twice in one stream is refused; in two streams it is not
+    with pytest.raises(SystemExit):
+        seed_spread.main([str(files[0]), str(files[0]), "--out", str(out)])
+
+
+def test_seed_spread_permutation_p_exact():
+    import numpy as np
+    import seed_spread
+
+    # 2 + 2 values: 6 splits, two of which are as far apart as the observed
+    assert seed_spread.permutation_p(np.array([0.0, 0.1]),
+                                     np.array([1.0, 1.1])) == pytest.approx(2 / 6)
 
 
 def test_seed_spread_leave_one_out(tmp_path, capsys):

@@ -92,9 +92,9 @@ class ConfigBank:
         self.device = resolve_device(device)
         self.parity_translate = parity_translate
         self.forward_share_cap = forward_share_cap
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # host draws, as the JAX bank's: carves, forward pieces and producer
-        # seeds from _rng, refresh target rows from _np_rng
+        # host draws, as the JAX bank's: carves, forward pieces, producer
+        # seeds and the seed of each unseeded device fill or refresh from
+        # _rng, refresh target rows from _np_rng
         self._rng = random.Random(seed)
         self._np_rng = np.random.default_rng(seed)
         # reentrant: refresh_device holds it across fill_device
@@ -115,8 +115,14 @@ class ConfigBank:
         return None if self.rows is None else self.rows[1]
 
     def _generator(self, seed: Optional[int]) -> torch.Generator:
+        """A fresh device generator seeded ``seed``, or, when ``seed`` is
+        None, seeded by one draw of the bank's ``random.Random``, as the JAX
+        bank draws ``PRNGKey(self._rng.randint(0, 2**31 - 1))``. So the
+        host generators stand where JAX's stand after every call, and the
+        bank's device stream is never the one a trainer seeds with the
+        bank's own seed."""
         if seed is None:
-            return self._gen
+            seed = self._rng.randint(0, 2**31 - 1)
         return torch.Generator(device=self.device).manual_seed(seed)
 
     # -- host rows --------------------------------------------------------------
@@ -216,9 +222,10 @@ class ConfigBank:
                     beam_width: int = 8) -> "ConfigBank":
         """Fill every row on the device: carves, and a ``forward_fraction``
         share of proven forward-family rows (rows [0:n] of the bank).
-        ``seed`` starts a fresh stream, None continues the bank's own.
-        The bank's lock is held across the generation, so host rows that a
-        producer sends meanwhile land after it, in the new rows."""
+        ``seed`` seeds the device stream; None seeds it from one draw of
+        the bank's ``random.Random`` (:meth:`_generator`). The bank's lock
+        is held across the generation, so host rows that a producer sends
+        meanwhile land after it, in the new rows."""
         with self._lock:
             cols, pieces, n_got = self._device_rows(
                 self._generator(seed), forward_fraction, initial_height_max,
@@ -239,7 +246,9 @@ class ConfigBank:
         ``forward_fraction > 0``: the whole bank is regenerated as a carve +
         proven-forward mix, as by :meth:`fill_device`. As in JAX, the bank's
         lock is held across the generation: a producer's
-        :meth:`_swap_rows` waits and lands in the new rows."""
+        :meth:`_swap_rows` waits and lands in the new rows. An unseeded
+        call draws one seed from the bank's ``random.Random``, whichever
+        branch it takes, as JAX's draws one key."""
         with self._lock:
             if forward_fraction > 0 or self.rows is None:
                 return self.fill_device(seed, forward_fraction, initial_height_max,

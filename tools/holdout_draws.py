@@ -19,7 +19,13 @@ A draw is one bank built from one seed, as the package builds it:
   alike. The host DFS rows are left out: they are JAX's word for word.
 * ``train``: the flagship training bank, ``ConfigBank(L, M, 4096,
   seed=...)`` after ``fill_device(forward_fraction=0.25)`` and one
-  ``refresh_device(forward_fraction=0.25)``.
+  ``refresh_device(forward_fraction=0.25)``. Each unseeded call seeds its
+  device stream from one draw of the bank's ``random.Random``, as JAX's
+  draws its key; the port's ``train`` lines say so (``"bank_stream":
+  "jax_order"``, ``learning_check.BANK_STREAM``; None on the other lines).
+  A port ``train`` line without that key was drawn while
+  the port seeded the fill with the bank's seed itself: in distribution a
+  draw like any other, but not the rows its seed gives now.
 
 For each bank the tool writes one JSON line per family to
 ``results/holdout_draws_<task>.jsonl`` (``--out``): the row statistics
@@ -62,7 +68,9 @@ its z-score within its side's draws.
 the ``--policy`` files on them: each rebuilt bank's line must equal its
 recorded line (same task, package, device, family and seed) in the row
 statistics and, for every policy both lines hold, in the rows won
-(``won_hex``); else the tool stops before it writes the line. So new
+(``won_hex``); else the tool stops before it writes the line. A recorded
+port ``train`` line of the old stream cannot be rebuilt, and the tool
+refuses it as such rather than reporting a mismatch. So new
 policies (another training seed of a run) are played on exactly the rows
 the recorded policies were played on. Write such lines to a file outside
 ``--analyze``'s glob (``results/training_seeds_L5M25.jsonl``), so that the
@@ -92,6 +100,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+from learning_check import BANK_STREAM
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -206,7 +215,8 @@ def port_banks(L: int, M: int, families: list, seed: int, train_seed: int,
                     "boards": unpack_board(bank.cols).cpu().numpy(),
                     "pieces": bank.pieces.cpu().numpy(),
                     "build_s": time.perf_counter() - t0,
-                    "forward_rows": int((bank.family == FAMILY_FORWARD).sum())})
+                    "forward_rows": int((bank.family == FAMILY_FORWARD).sum()),
+                    "bank_stream": BANK_STREAM})
     return out
 
 
@@ -346,6 +356,11 @@ def check_recorded(line: dict, recorded: Optional[dict]) -> None:
     where = f"the rebuilt {line['family']} draw at seed {line['seed']} ({side_of(line)})"
     if recorded is None:
         raise SystemExit(f"{where} has no recorded line")
+    if recorded.get("bank_stream") != line.get("bank_stream"):
+        raise SystemExit(
+            f"{where}: its recorded line was drawn on the port's old bank stream "
+            "(the device fill seeded with the bank's own seed), so this tree "
+            "cannot rebuild it; remake the line instead of checking it")
     bad = [k for k in ("stats", "beam", "forward_rows")
            if json.loads(json.dumps(line[k])) != recorded.get(k)]
     shared = sorted(set(line["policies"]) & set(recorded["policies"]))
@@ -401,6 +416,7 @@ def draw(a: argparse.Namespace) -> int:
                     "stats": row_stats(b["boards"], b["pieces"], M),
                     "beam": b.get("beam"), "forward_rows": b.get("forward_rows"),
                     "flagship_beam_rows_equal": b.get("flagship_beam_rows_equal"),
+                    "bank_stream": b.get("bank_stream"),
                     "policies": {name: {"rows": int(w.size), "won": int(w.sum()),
                                         "win_fraction": float(w.mean()) if w.size else None,
                                         "won_hex": np.packbits(w).tobytes().hex()}

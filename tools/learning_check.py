@@ -109,8 +109,9 @@ them the forward family and the whole bank JAX's reading would have held
 had its host proved 0, 71 or 96 rows (``on_jax_rows``). The rows are
 identical inputs for both packages, so the card needs no JAX for it.
 
-Prints one JSON line, and writes it to ``OUT/result.json``: the port's
-training win rate at each chunk beside the JAX run's, the band check, the
+Prints one JSON line, and writes it to ``OUT/result.json``: the run's
+``bank_stream`` (``BANK_STREAM``), the port's training win rate at each
+chunk beside the JAX run's, the band check, the
 newest held-out reading against JAX's, each segment's env-steps/s and wall
 time beside the card's name and power limit as ``nvidia-smi`` gives them,
 and the rows around each resume. A call stopped by ``--timeout`` prints
@@ -136,6 +137,11 @@ REFERENCE = ROOT / "results" / "train_L2M20_v2_summary.json"
 FLAGSHIP_REFERENCE = ROOT / "results" / "train_r4_L5df500.log"
 FLAGSHIP100K_REFERENCE = ROOT / "results" / "train_r3_L5df.log"
 FLAGSHIP100K_EVAL = ROOT / "results" / "eval_r3_L5df.json"
+# How the device bank's unseeded fills and refreshes are seeded: from the
+# bank's ``random.Random`` in the JAX bank's order. Results without the key
+# were made while the bank's stream was the trainer's (seeded with the run's
+# own seed on the same device).
+BANK_STREAM = "jax_order"
 # JAX's own held-out rows of a task (``tools/jax_holdout_rows.py --save``),
 # and the host row counts h whose forward family a reading plays
 JAX_ROWS = {(5, 25): ROOT / "results" / "jax_holdout_rows_L5M25.npz"}
@@ -621,6 +627,7 @@ def summarize(a: argparse.Namespace, out: Path) -> dict:
     res = {"tool": "learning_check", "recipe": a.recipe, "device": a.device,
            "card": segments[-1]["card"] if segments else None,
            "actor_fusion": a.actor_fusion, "seed": a.seed,
+           "bank_stream": BANK_STREAM,
            "task": f"L={a.lines},M={a.moves}", "num_envs": a.num_envs,
            "bank": a.bank, "train_flags": a.model_flags + a.flags, "steps": a.steps,
            "last_step": curve[-1]["step"] if curve else 0,

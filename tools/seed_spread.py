@@ -16,6 +16,22 @@ others shows as a large left-out z with a small left-out sd; a spread
 that one seed makes is then not the spread of the rest. Prints one JSON
 line and writes it to ``--out`` (default
 ``results/training_seeds_L5M25_spread.json``).
+
+The results fall in groups by the device bank's stream (``bank_stream``;
+a result without it was trained while the bank's unseeded fill and
+refreshes drew the trainer's own stream, ``bank_seed``; ``jax_order`` is
+the stream seeded from the bank's ``random.Random``, as JAX seeds it).
+``groups`` holds the rows above for each stream, and ``rows`` those of the
+newest stream present. ``curve`` gives each stream's seeds' mean and sd
+(with its 95% interval) at every logged chunk row, and JAX's value there.
+With both streams present, ``streams`` compares them at ``TEST_STEPS``
+(Welch's t and an exact permutation test on the difference of means), sets
+each old-stream seed (``z_against_new``) and JAX (``jax_z``) against each
+group, and applies the rule for C-2 (``c2``, fixed before the new seeds
+were read): (a) a new seed at or below ``SLOW`` at the last test step, or
+old seed ``RULE_SEED`` less than ``RULE_Z`` new sd below the new mean: a
+slow seed of the recipe; (b) else, the groups apart at p < ``ALPHA`` at a
+test step: made by the shared stream; (c) otherwise open.
 """
 
 from __future__ import annotations
@@ -28,11 +44,19 @@ import sys
 from pathlib import Path
 
 import numpy as np
+from learning_check import BANK_STREAM
 
 ROOT = Path(__file__).resolve().parents[1]
 RESULTS = sorted((ROOT / "results").glob("flagship_L5M25_100k*_h100*.json"))
 OUT = ROOT / "results" / "training_seeds_L5M25_spread.json"
 HELD_OUT = ("holdout", "carve", "forward", "train_bank")
+STREAMS = ("bank_seed", BANK_STREAM)   # old, new
+TEST_STEPS = (25_000, 50_000)
+ALPHA, SLOW, RULE_SEED, RULE_Z = 0.01, 0.30, 2, 3.0
+
+
+def stream_of(result: dict) -> str:
+    return result.get("bank_stream", STREAMS[0])
 
 
 def readings(result: dict) -> dict:
@@ -84,17 +108,85 @@ def seed_spread(results: list[dict]) -> dict:
     return rows
 
 
+def curve(results: list[dict]) -> dict:
+    """Per logged chunk row: each seed's training win rate, JAX's, and the
+    seeds' mean and sd."""
+    out = {}
+    for res in results:
+        for row in res.get("rows", []):
+            r = out.setdefault(str(row["step"]), {"jax": row["jax_win_rate"], "seeds": {}})
+            r["seeds"][res["seed"]] = row["port_win_rate"]
+    for r in out.values():
+        r.update(seed_stats(r["seeds"], r["jax"]))
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0])))
+
+
+def permutation_p(x: np.ndarray, y: np.ndarray) -> float:
+    """Exact two-sided permutation p of the difference of means."""
+    from itertools import combinations
+
+    pool, n = np.concatenate([x, y]), x.size
+    obs = abs(x.mean() - y.mean())
+    hits = total = 0
+    for idx in combinations(range(pool.size), n):
+        mask = np.zeros(pool.size, bool)
+        mask[list(idx)] = True
+        hits += abs(pool[mask].mean() - pool[~mask].mean()) >= obs - 1e-12
+        total += 1
+    return hits / total
+
+
+def compare_streams(curves: dict) -> dict:
+    """The old stream's seeds against the new one's at TEST_STEPS, and the
+    rule for C-2."""
+    from scipy import stats
+
+    old, new = (curves[s] for s in STREAMS)
+    out = {}
+    for step in TEST_STEPS:
+        a, b = old.get(str(step)), new.get(str(step))
+        if a is None or b is None or a["n"] < 2 or b["n"] < 2:
+            continue
+        x = np.array(list(a["seeds"].values()), float)
+        y = np.array(list(b["seeds"].values()), float)
+        out[str(step)] = {
+            "old": {k: a[k] for k in ("n", "mean", "sd", "sd_95")},
+            "new": {k: b[k] for k in ("n", "mean", "sd", "sd_95")},
+            "welch_p": float(stats.ttest_ind(x, y, equal_var=False).pvalue),
+            "permutation_p": permutation_p(x, y),
+            "z_against_new": {s: (v - b["mean"]) / b["sd"] for s, v in a["seeds"].items()},
+            "jax": a["jax"], "jax_z": {"old": a["jax_z"], "new": b["jax_z"]},
+            "new_min": float(y.min())}
+    if str(TEST_STEPS[-1]) not in out:
+        return {"tests": out, "c2": None}
+    last = out[str(TEST_STEPS[-1])]
+    slow = last["new_min"] <= SLOW
+    z = last["z_against_new"].get(RULE_SEED)
+    apart = any(t["welch_p"] < ALPHA or t["permutation_p"] < ALPHA for t in out.values())
+    verdict = ("a" if slow or (z is not None and z > -RULE_Z)
+               else "b" if apart else "c")
+    return {"tests": out, "c2": {"verdict": verdict, "new_seed_at_or_below_slow": slow,
+                                  "rule_seed_z": z, "apart_at_alpha": apart}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("results", nargs="*", default=[str(x) for x in RESULTS])
     p.add_argument("--out", default=str(OUT))
     a = p.parse_args(argv)
     results = [json.loads(Path(x).read_text()) for x in a.results]
-    if len({r["seed"] for r in results}) != len(results):
-        raise SystemExit("two results of one seed")
-    text = json.dumps({"results": [os.path.relpath(Path(x).resolve(), ROOT)
-                                   for x in a.results],
-                       "rows": seed_spread(results)})
+    if len({(stream_of(r), r["seed"]) for r in results}) != len(results):
+        raise SystemExit("two results of one seed and stream")
+    by_stream = {st: [r for r in results if stream_of(r) == st] for st in STREAMS}
+    by_stream = {st: rs for st, rs in by_stream.items() if rs}
+    groups = {st: {"seeds": sorted(r["seed"] for r in rs), "rows": seed_spread(rs)}
+              for st, rs in by_stream.items()}
+    curves = {st: curve(rs) for st, rs in by_stream.items()}
+    out = {"results": [os.path.relpath(Path(x).resolve(), ROOT) for x in a.results],
+           "rows": groups[list(groups)[-1]]["rows"], "groups": groups, "curve": curves}
+    if len(by_stream) == len(STREAMS):
+        out["streams"] = compare_streams(curves)
+    text = json.dumps(out)
     Path(a.out).write_text(text + "\n")
     print(text, flush=True)
     return 0
