@@ -48,9 +48,11 @@ drives the port's two paths through the entry points a user calls:
     with the refresh off for comparison;
 11. the array engine on the card against the bitboard step, word for word;
 12. the curriculum trainer at full width (levels 1:10, 2:15, 3:20, 1024
-    envs, 1024 rows per level, replay 131072): the card's
-    ``step_autoreset_curriculum`` against the CPU's word for word, a few
-    chunks, and the per-level greedy evaluation;
+    envs, 1024 rows per level, replay 131072): each level's bank carved
+    from a generator of its own seed (one draw of ``random.Random(0)``) and
+    carved again from it, the trainer's stream apart from the levels'; the
+    card's ``step_autoreset_curriculum`` against the CPU's word for word, a
+    few chunks, and the per-level greedy evaluation;
 13. ``cli play`` (the recorded solution, and greedy from the phase-10
     checkpoint on the card) and ``cli bench --no-train``
     (``bench.run(train=False)``: the rollout kernel at the benchmark shape,
@@ -1271,12 +1273,50 @@ def phase_curriculum() -> dict:
     cfg = TrainConfig(env=EnvConfig(L=1, M=10), dqn=DQNConfig(batch_size=128),
                       num_envs=1024, bank_capacity=1024, replay_capacity=131072,
                       warmup_steps=1000, seed=0)
-    sync()
-    t0 = time.perf_counter()
-    tr = CurriculumTrainer(levels, cfg=cfg, seed=0, device=DEV)
-    sync()
-    bank_s = time.perf_counter() - t0
+    seen = []
+    carve = cur_lib.generate_batch_device
+
+    def spy(*args, generator=None, **kw):
+        seen.append(generator.initial_seed())
+        return carve(*args, generator=generator, **kw)
+
+    cur_lib.generate_batch_device = spy
+    try:
+        sync()
+        t0 = time.perf_counter()
+        tr = CurriculumTrainer(levels, cfg=cfg, seed=0, device=DEV)
+        sync()
+        bank_s = time.perf_counter() - t0
+    finally:
+        cur_lib.generate_batch_device = carve
     bank = tr.bank
+    seeds = cur_lib.level_seeds(0, len(levels))
+    check(seen == seeds, f"the levels' banks carved from generators seeded {seen}, "
+          f"one draw each of random.Random(0): {seeds}")
+    P = bank.pieces.shape[2]
+    for k, (L, M) in enumerate(levels):
+        gen = torch.Generator(device=DEV).manual_seed(seeds[k])
+        again = carve(1024, L, M, generator=gen, device=DEV)
+        pad = torch.randint(0, 7, (1024, P - M - 1), generator=gen, device=DEV)
+        check(torch.equal(again.boards, bank.boards[k])
+              and torch.equal(again.pieces, bank.pieces[k, :, :M + 1])
+              and torch.equal(pad.to(torch.int8), bank.pieces[k, :, M + 1:]),
+              f"level {k}'s bank carved again on the card from seed {seeds[k]}: "
+              "the same boards and pieces")
+
+    def first_resets(seed: int) -> torch.Tensor:
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return torch.randint(0, 1024, (1024,), generator=gen, device=DEV)
+
+    trainer_seed = tr.state.gen.initial_seed()
+    rows = first_resets(trainer_seed)
+    check(tr.state.gen.device.type == bank.boards.device.type == DEV.type
+          and torch.equal(tr.state.env.cols, bank.boards[0, rows])
+          and trainer_seed not in seen
+          and not any(torch.equal(rows, first_resets(x)) for x in seen),
+          f"the trainer's stream on the card (seed {trainer_seed}) is no level's: "
+          "its first 1024 reset rows differ from those each level's generator "
+          "would draw")
     bank_cpu = cur_lib.CurriculumBank(*(x.cpu() for x in bank))
     rng = np.random.default_rng(2)
     level = torch.as_tensor(rng.integers(0, 3, 1024))

@@ -19,6 +19,7 @@ one run on one device type (ROADMAP §C, C-3), each shown by recording the
 seeds of every ``torch.Generator`` a constructor makes.
 """
 
+import copy
 import random
 
 import pytest
@@ -212,14 +213,13 @@ PAIRS = {
                                            {("cpu", 3): 2, ("cpu", 4): 2}),
     # entry(): the flagship net's init and the draws' generator
     "entry_net_init_and_draws": (_entry, 3, {("cpu", 3): 2}),
-    # CurriculumTrainer at seed 0: level 0's bank generator (seed * 1000 + 0),
-    # the trainer's and the net's init; the first two share a device type
-    # on the card too
-    "curriculum_level0_trainer_net_init": (_curriculum, 0, {("cpu", 0): 3}),
-    # bench_mfu.measure (its trainer at seed 0): the conv net's init, the
-    # trainer's and the FLOP count's sampler; the last two share a device
-    # type on the card too
-    "bench_mfu_net_init_trainer_flop_count": (_bench_mfu, 0, {("cpu", 0): 3}),
+    # CurriculumTrainer at seed 0: the net's init and the trainer's; each
+    # level's bank generator is seeded from its own draw (gen/curriculum.py,
+    # level_seeds), so none shares the trainer's seed
+    "curriculum_net_init_and_trainer": (_curriculum, 0, {("cpu", 0): 2}),
+    # bench_mfu.measure (its trainer at seed 0): the conv net's init and the
+    # trainer's; the FLOP count's sampler is seeded FLOP_COUNT_SEED
+    "bench_mfu_net_init_and_trainer": (_bench_mfu, 0, {("cpu", 0): 2}),
 }
 
 
@@ -248,6 +248,55 @@ def test_main_path_bank_is_not_paired():
     assert ("cpu", fill) in _Recorder.seen
     assert _Recorder.seen.count(("cpu", 5)) == 2  # the net's init, the trainer's
     assert tr.state.gen.initial_seed() == 5 != fill
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_curriculum_level_generators_apart_from_trainer(seed, monkeypatch):
+    """Each level's bank generator is seeded by one draw of
+    ``random.Random(seed)``, in level order, and none by the trainer's seed:
+    the trainer's reset, epsilon and sample draws are not the words that
+    carved a level's bank (at seed 0 level 0's were, while level k was
+    seeded ``seed * 1000 + k``)."""
+    from tetris_piclim_tpu_torch.dqn.curriculum_train import CurriculumTrainer
+    from tetris_piclim_tpu_torch.gen.curriculum import level_seeds
+
+    levels = [(1, 6), (1, 8), (2, 10)]
+    draws = random.Random(seed)
+    want = [draws.randint(0, 2**31 - 1) for _ in levels]
+    monkeypatch.setattr(torch, "Generator", _Recorder)
+    _Recorder.seen.clear()
+    tr = CurriculumTrainer(levels, _tiny_cfg(seed), seed=seed, device="cpu")
+    assert level_seeds(seed, len(levels)) == want
+    assert _Recorder.seen[:len(levels)] == [("cpu", s) for s in want]
+    assert tr.state.gen.initial_seed() == seed not in want
+    assert all(_words(s) != _words(seed) for s in want)
+
+
+# bench_mfu's learner_update FLOPs at its default batch, counted on the tree
+# before the FLOP count's sampler was seeded apart (its sampler seeded 0)
+PARENT_LEARNER_FLOPS = 6_905_200_640.0
+
+
+def test_bench_mfu_flop_count_unmoved(monkeypatch):
+    """The count does not depend on the rows the sampler draws: it equals
+    the parent tree's, and a count with the old sampler (seed 0)."""
+    from tetris_piclim_tpu_torch import bench_mfu
+
+    counted, seen = bench_mfu.mfu_lib.counted_flops, []
+
+    def record(fn, *args, **kw):
+        flops = counted(fn, *args, **kw)
+        if fn is bench_mfu.agent_lib.learner_update:
+            seen.append(flops)
+            kw["generator"] = torch.Generator().manual_seed(0)
+            seen.append(counted(fn, *copy.deepcopy(args), **kw))
+        return flops
+
+    monkeypatch.setattr(bench_mfu.mfu_lib, "counted_flops", record)
+    res = bench_mfu.measure(num_envs=16, scan=1, updates=1, device="cpu")
+    assert bench_mfu.FLOP_COUNT_SEED not in (0, 1, random.Random(0).randint(0, 2**31 - 1))
+    assert seen == [PARENT_LEARNER_FLOPS] * 2
+    assert res["learner_gflops_per_update"] == round(PARENT_LEARNER_FLOPS / 1e9, 4)
 
 
 

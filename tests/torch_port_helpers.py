@@ -3,8 +3,15 @@ streams that go through both the JAX package and its PyTorch port."""
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def adversarial_boards(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -103,3 +110,48 @@ def filled_replays(cap: int, n: int, writes: int, seed: int = 0):
         jr = add(jr, *[jnp.asarray(v) for v in f.values()])
         tr.add_fields(*[t(v) for v in f.values()])
     return jr, tr
+
+
+# -- the tools' tests (tests/test_torch_tools_*.py) ---------------------------
+
+
+def run_tool(args: list, timeout: int) -> subprocess.CompletedProcess:
+    # one thread, as in this process: on a busy machine torch's default of
+    # one thread per core makes a tiny run wait on the others for minutes
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def tiny_run(tmp_path, forward_fraction: float = 0.5):
+    """A checkpoint of the toy conv learner with its 16-row training bank,
+    and a 16-row held-out bank of forward rows over carves (saved as
+    ``cli eval --save-holdout`` saves it)."""
+    from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
+    from tetris_piclim_tpu_torch.gen.bank import ConfigBank
+    from tetris_piclim_tpu_torch.models.convnet import ConvQNetwork
+    from tetris_piclim_tpu_torch.utils.checkpoint import save_bank
+    from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
+
+    cfg = TrainConfig(env=EnvConfig(L=1, M=8), num_envs=8, bank_capacity=16,
+                      replay_capacity=64, seed=0)
+    bank = ConfigBank(1, 8, capacity=16, seed=0, device="cpu").fill_device(
+        forward_fraction=0.25)
+    net = ConvQNetwork(dueling=True, joint=True, generator=torch.Generator().manual_seed(3))
+    trainer = DQNTrainer(cfg, bank=bank, net=net, device="cpu")
+    ckpt = str(tmp_path / "ckpt" / "final")
+    trainer.save_checkpoint(ckpt)
+    save_bank(ckpt, trainer.bank)
+    hold = ConfigBank(1, 8, capacity=16, seed=9, device="cpu").fill_device(
+        forward_fraction=forward_fraction)
+    save_bank(str(tmp_path / "holdout"), hold)
+    return trainer, ckpt, hold
+
+
+def held_out_reading(step, holdout, carve, forward, train_bank, key="bank"):
+    ev = {"holdout": {"win_rate": holdout, "episodes": 8192,
+                      "families": {"carve": 1024, "forward": 1024},
+                      "build": {"host_forward": 700, "device_forward": 324}},
+          "holdout_carve": {"win_rate": carve}, "holdout_forward": {"win_rate": forward},
+          key: {"win_rate": train_bank}}
+    return {"step": step, "source": "eval", "eval": ev}

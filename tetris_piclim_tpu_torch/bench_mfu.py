@@ -27,10 +27,11 @@ best-of-``REPEATS`` times of different loops).
 FLOPs come from ``utils/mfu.py::counted_flops`` of one unlooped actor
 forward and one ``learner_update`` (its backward included; run on copies
 of the networks, optimizer and replay, so the trainer's state does not
-move), times the trip counts. The env step is bitwise integer work, not
-model FLOPs, and is left out, as in JAX. MFU is against the card's BF16
-peak; off a known card (the CPU) the MFU fields are None and the times and
-FLOPs are still reported. ``device_kind`` always names the device.
+move; its sample from a generator seeded ``FLOP_COUNT_SEED``), times the
+trip counts. The env step is bitwise integer work, not model FLOPs, and is
+left out, as in JAX. MFU is against the card's BF16 peak; off a known card
+(the CPU) the MFU fields are None and the times and FLOPs are still
+reported. ``device_kind`` always names the device.
 
 ``python -m tetris_piclim_tpu_torch.bench_mfu [--bf16] ...`` prints one
 JSON line.
@@ -55,6 +56,11 @@ from .utils.config import DQNConfig, EnvConfig, TrainConfig
 from .utils.device import resolve_device
 
 REPEATS = 3
+# The counted ``learner_update`` draws its sample from a generator of its
+# own, seeded apart from every generator of the timed trainer (0 and 1) and
+# of its bank (a draw of ``random.Random(0)``), so the count replays none of
+# their streams; the count does not depend on the rows drawn.
+FLOP_COUNT_SEED = 12_345
 L, M = 5, 25
 
 
@@ -140,7 +146,7 @@ def measure(num_envs: int = 2048, scan: int = 512, updates: int = 4,
     f_upd = mfu_lib.counted_flops(
         agent_lib.learner_update, net_c, target_c, opt_c, replay_c, dqn,
         step_gap=num_envs, beta=1.0,
-        generator=torch.Generator(device=dev).manual_seed(0))
+        generator=torch.Generator(device=dev).manual_seed(FLOP_COUNT_SEED))
     del net_c, target_c, opt_c, replay_c
 
     # -- learner: scan x updates updates on the warmed replay ------------------

@@ -15,6 +15,7 @@ JAX functions given the rows JAX drew; :func:`promote_levels` is numpy
 
 from __future__ import annotations
 
+import random
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -34,18 +35,29 @@ class CurriculumBank(NamedTuple):
     moves: torch.Tensor    # int32[K]
 
 
+def level_seeds(seed: int, n_levels: int) -> list[int]:
+    """The seeds of the levels' bank generators: one
+    ``random.Random(seed).randint(0, 2**31 - 1)`` per level, in level order,
+    as the device bank seeds an unseeded fill (``ConfigBank._generator``).
+    The curriculum trainer seeds its generator on the same device with
+    ``seed`` itself, so its draws are not the words that carved a bank (JAX
+    splits one key into bank, env and init keys)."""
+    rng = random.Random(seed)
+    return [rng.randint(0, 2**31 - 1) for _ in range(n_levels)]
+
+
 def build_curriculum_bank(levels: Sequence[tuple[int, int]], capacity: int, *,
                           seed: int = 0, device="cuda") -> CurriculumBank:
     """Carve ``capacity`` winnable configurations per (L, M) level on the
-    device, level k from a generator seeded ``seed * 1000 + k``. All levels
-    share one piece length P = max(M) + 1; a shorter level's sequences are
-    padded with uniform random pieces from its generator (the step reads
-    only the entries its cursor reaches)."""
+    device, level k from a generator seeded ``level_seeds(seed, K)[k]``.
+    All levels share one piece length P = max(M) + 1; a shorter level's
+    sequences are padded with uniform random pieces from its generator (the
+    step reads only the entries its cursor reaches)."""
     dev = torch.device(device)
     P = max(m for _, m in levels) + 1
     boards, pieces = [], []
-    for k, (L, M) in enumerate(levels):
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + k)
+    for (L, M), level_seed in zip(levels, level_seeds(seed, len(levels))):
+        gen = torch.Generator(device=dev).manual_seed(level_seed)
         batch = generate_batch_device(capacity, L, M, generator=gen, device=dev)
         seq = batch.pieces
         if seq.shape[1] < P:
