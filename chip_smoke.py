@@ -51,8 +51,11 @@ drives the port's two paths through the entry points a user calls:
     envs, 1024 rows per level, replay 131072): each level's bank carved
     from a generator of its own seed (one draw of ``random.Random(0)``) and
     carved again from it, the trainer's stream apart from the levels'; the
-    card's ``step_autoreset_curriculum`` against the CPU's word for word, a
-    few chunks, and the per-level greedy evaluation;
+    card's ``step_autoreset_curriculum`` against the CPU's word for word;
+    one ``run_chunk`` on the card and the same chunk on the CPU from one
+    fresh state, at a mixed level array, across the warmup, on the card's
+    draws fed to both (envs, ring and tallies word for word, weights
+    within 1e-4); a few chunks, and the per-level greedy evaluation;
 13. ``cli play`` (the recorded solution, and greedy from the phase-10
     checkpoint on the card) and ``cli bench --no-train``
     (``bench.run(train=False)``: the rollout kernel at the benchmark shape,
@@ -1263,6 +1266,82 @@ def phase_array_engine() -> dict:
     return {"steps": M + 4, "envs": n}
 
 
+@contextlib.contextmanager
+def fed_draws(gen: torch.Generator, draws: list, record: bool):
+    """Inside, ``torch.rand`` / ``torch.randint`` from ``gen`` append what
+    they draw to ``draws`` (``record``), or return its items in order, on
+    the device asked for: the same drawn inputs for two runs."""
+    rand, randint = torch.rand, torch.randint
+
+    def fed(fn):
+        def call(*args, generator=None, device=None, **kw):
+            if generator is not gen:
+                return fn(*args, generator=generator, device=device, **kw)
+            if record:
+                draws.append(fn(*args, generator=generator, device=device, **kw).cpu())
+                return draws[-1].to(device)
+            return draws.pop(0).to(device)
+        return call
+
+    torch.rand, torch.randint = fed(rand), fed(randint)
+    try:
+        yield
+    finally:
+        torch.rand, torch.randint = rand, randint
+
+
+def curriculum_chunk_card_vs_cpu(levels, bank, bank_cpu) -> float:
+    """One ``run_chunk`` on the card and on the CPU from one fresh state
+    (1024 envs, a mixed level array, the replay filling past the warmup at
+    step 2), on the card's draws fed to both. Returns the weights' largest
+    difference."""
+    steps = 24
+    cfg = TrainConfig(env=EnvConfig(L=1, M=10), dqn=DQNConfig(batch_size=128),
+                      num_envs=1024, bank_capacity=1024, replay_capacity=131072,
+                      warmup_steps=2000, seed=1)
+    build = cur_lib.build_curriculum_bank
+    try:
+        cur_lib.build_curriculum_bank = lambda *a, device=None, **k: (
+            bank if torch.device(device).type == "cuda" else bank_cpu)
+        card = CurriculumTrainer(levels, cfg=cfg, seed=1, device=DEV)
+        host = CurriculumTrainer(levels, cfg=cfg, seed=1, device="cpu")
+    finally:
+        cur_lib.build_curriculum_bank = build
+    level = np.random.default_rng(3).integers(0, 3, 1024)
+    card.level = host.level = level
+    host.state.env = bb.PackedState(*(x.cpu() for x in card.state.env))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(
+        card.state.net.state_dict().values(), host.state.net.state_dict().values())),
+        "curriculum chunk: the card's and the CPU's trainers start from one state")
+    w0 = card.state.net.state_dict()["dense.0.weight"].clone()
+    draws: list = []
+    with fed_draws(card.state.gen, draws, record=True):
+        c_eps, c_wins, c_loss = card.run_chunk(steps)
+    n_draws = len(draws)
+    with fed_draws(host.state.gen, draws, record=False):
+        h_eps, h_wins, h_loss = host.run_chunk(steps)
+    check(not draws and n_draws == 4 * steps + steps - 1,
+          f"curriculum chunk: the CPU took the card's {n_draws} draws, "
+          f"{steps - 1} steps of updates")
+    env_ok = all(torch.equal(a.cpu(), b) for a, b in zip(card.state.env, host.state.env))
+    cr, hr = card.state.replay, host.state.replay
+    ring_ok = (cr.pos, cr.size) == (hr.pos, hr.size) and all(
+        torch.equal(cr.buf[k].cpu(), hr.buf[k]) for k in cr.buf)
+    tally_ok = torch.equal(c_eps.cpu(), h_eps) and torch.equal(c_wins.cpu(), h_wins)
+    err = max(float((a.cpu() - b).abs().max()) for net in ("net", "target_net")
+              for a, b in zip(getattr(card.state, net).state_dict().values(),
+                              getattr(host.state, net).state_dict().values()))
+    moved = float((card.state.net.state_dict()["dense.0.weight"] - w0).abs().max())
+    check(env_ok and ring_ok and tally_ok and err <= 1e-4 and moved > 0
+          and bool((h_eps > 0).all()),
+          f"curriculum chunk, {steps} steps at levels {np.bincount(level).tolist()}: "
+          f"card = CPU word for word in envs, ring ({hr.size} rows) and tallies "
+          f"(episodes {h_eps.long().tolist()}, wins {h_wins.long().tolist()}); "
+          f"weights and target within {err:.3e} (<= 1e-4); loss {float(c_loss):.6f} / "
+          f"{float(h_loss):.6f}")
+    return err
+
+
 def phase_curriculum() -> dict:
     """The curriculum trainer at full width (no kernel of its own: the JAX
     curriculum runs the XLA step too)."""
@@ -1333,6 +1412,7 @@ def phase_curriculum() -> dict:
             check(False, f"step {k}: card and CPU step_autoreset_curriculum agree")
         dones += int(res.done.sum())
     check(dones > 1024, f"24 steps word for word, card against CPU ({dones} resets)")
+    chunk_err = curriculum_chunk_card_vs_cpu(levels, bank, bank_cpu)
     hist = tr.train(total_steps=chunks * chunk, chunk=chunk,
                     log_fn=lambda m: print("  " + m))
     check(all(np.isfinite(r["loss"]) for r in hist) and hist[-1]["loss"] > 0,
@@ -1350,7 +1430,8 @@ def phase_curriculum() -> dict:
     return {"bank_s": bank_s, "env_steps_per_s": last["steps_per_s"],
             "train_win_rates": [r["win_rate_per_level"] for r in hist],
             "level_distribution": last["level_distribution"],
-            "eval_win_rates": [r["win_rate"] for r in ev], "eval_s": eval_s}
+            "eval_win_rates": [r["win_rate"] for r in ev], "eval_s": eval_s,
+            "chunk_card_vs_cpu_max_abs_err": chunk_err}
 
 
 def phase_per_env_goals() -> dict:

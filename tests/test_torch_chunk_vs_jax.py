@@ -30,11 +30,10 @@ from tetris_piclim_tpu.utils.config import EnvConfig as JEnv, TrainConfig as JCo
 from tetris_piclim_tpu_torch.dqn.train import DQNTrainer
 from tetris_piclim_tpu_torch.gen.bank import ConfigBank
 from tetris_piclim_tpu_torch.models.qnet import params_from_flax
-from tetris_piclim_tpu_torch.ops import bitboard as tbb
 from tetris_piclim_tpu_torch.utils.checkpoint import read_flax_npz
 from tetris_piclim_tpu_torch.utils.config import EnvConfig, TrainConfig
 
-from torch_port_helpers import assert_states_equal
+from torch_port_helpers import assert_states_equal, port_state_from_jax
 
 PARAMS = Path(__file__).resolve().parents[1] / "results" / "tpu_L2M20_v2_params.npz"
 BANK = 4096
@@ -59,25 +58,6 @@ def jax_draws(key, n_envs: int, capacity: int, warmup: int, steps: int, size: in
             k_i = jax.random.fold_in(k_sample, 0)
             out.append((size, np.asarray(jax.random.randint(k_i, (BATCH,), 0, size))))
     return out
-
-
-def port_state_from_jax(st, ts) -> None:
-    """Load JAX's whole train state ``ts`` into the port's ``st``."""
-    flax = lambda tree: params_from_flax(jax.device_get(tree))  # noqa: E731
-    st.net.load_state_dict(flax(ts.params))
-    st.target_net.load_state_dict(flax(ts.target_params))
-    ams, names = ts.opt_state[0], [k for k, _ in st.net.named_parameters()]
-    st.opt.load_state_dict({"count": int(ams.count),
-                            **{m: [flax(getattr(ams, m))[k] for k in names]
-                               for m in ("mu", "nu", "nu_max")}})
-    r = ts.replay
-    st.replay.load_state_dict({
-        "buf": {k: torch.from_numpy(np.array(getattr(r, k))).to(v.dtype)
-                for k, v in st.replay.buf.items()},
-        "pos": int(r.pos), "size": int(r.size),
-        "priority": torch.from_numpy(np.array(r.priority)),
-        "max_prio": torch.tensor(float(r.max_prio))})
-    st.global_step, st.updates_done = int(ts.global_step), int(ts.updates_done)
 
 
 @pytest.mark.parametrize("n_envs,capacity,start,steps", [
@@ -105,10 +85,6 @@ def test_per_step_chunk_matches_jax(monkeypatch, n_envs, capacity, start, steps)
     tr = DQNTrainer(cfg, bank=bank, device="cpu")
     st = tr.state
     port_state_from_jax(st, ts0)
-    st.env = tbb.PackedState(*[
-        torch.from_numpy(np.array(f).astype(np.int8 if name in ("pieces", "status")
-                                            else np.int32))
-        for name, f in zip(tbb.PackedState._fields, ts0.env)])
 
     rand, randint = torch.rand, torch.randint
     queue = list(draws)

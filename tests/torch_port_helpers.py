@@ -112,6 +112,39 @@ def filled_replays(cap: int, n: int, writes: int, seed: int = 0):
     return jr, tr
 
 
+def port_state_from_jax(st, ts) -> None:
+    """Load a JAX trainer's whole state ``ts`` into the port's ``st``
+    (a ``DQNTrainer`` or ``CurriculumTrainer`` state): weights, target,
+    AMSGrad moments, the replay ring with its priorities, the envs, the
+    step and, where the state keeps it, the update count."""
+    import jax
+
+    from tetris_piclim_tpu_torch.models.qnet import params_from_flax
+    from tetris_piclim_tpu_torch.ops import bitboard as tbb
+
+    flax = lambda tree: params_from_flax(jax.device_get(tree))  # noqa: E731
+    st.net.load_state_dict(flax(ts.params))
+    st.target_net.load_state_dict(flax(ts.target_params))
+    ams, names = ts.opt_state[0], [k for k, _ in st.net.named_parameters()]
+    st.opt.load_state_dict({"count": int(ams.count),
+                            **{m: [flax(getattr(ams, m))[k] for k in names]
+                               for m in ("mu", "nu", "nu_max")}})
+    r = ts.replay
+    st.replay.load_state_dict({
+        "buf": {k: torch.from_numpy(np.array(getattr(r, k))).to(v.dtype)
+                for k, v in st.replay.buf.items()},
+        "pos": int(r.pos), "size": int(r.size),
+        "priority": torch.from_numpy(np.array(r.priority)),
+        "max_prio": torch.tensor(float(r.max_prio))})
+    st.env = tbb.PackedState(*[
+        torch.from_numpy(np.array(f).astype(np.int8 if name in ("pieces", "status")
+                                            else np.int32))
+        for name, f in zip(tbb.PackedState._fields, ts.env)])
+    st.global_step = int(ts.global_step)
+    if hasattr(ts, "updates_done"):
+        st.updates_done = int(ts.updates_done)
+
+
 # -- the tools' tests (tests/test_torch_tools_*.py) ---------------------------
 
 
