@@ -1,17 +1,20 @@
 """``tools/curriculum_check.py``: the JAX log it reads, its bands and rule,
-its command line, and a toy run on the CPU."""
+its command line, and a toy run on the CPU; the 300k recipe and bands of
+``tools/curriculum_segment.py``."""
 
 import argparse
 import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 
 import curriculum_check as cc  # noqa: E402
+import curriculum_segment as seg  # noqa: E402
 
 
 def test_jax_log_parses_to_its_rows_and_final_line():
@@ -392,3 +395,140 @@ def test_all_three_swaps_make_the_port_run_jax_run():
     assert [r["step"] for r in rows[0]] == [10, 20, 30]
     assert rows[0][-1]["level_distribution"] == [8, 8]
     assert rows[1] == rows[0]
+
+
+# -- JAX's 300k run (tools/curriculum_segment.py) and the fresh-seed reading --
+
+
+def test_300k_recipe_reads_the_jax_log(monkeypatch):
+    rows, final = cc.read_log(seg.JAX_LOG.read_text())
+    assert [r["step"] for r in rows] == list(range(10000, 300001, 10000))
+    assert final == {"step": 300000, "loss": pytest.approx(0.14058391749858856),
+                     "win_rate_per_level": [0.412, 0.408, 0.118, 0.0],
+                     "level_distribution": [1, 64, 4031, 0]}
+    assert rows[-1]["win_rate_per_level"] == final["win_rate_per_level"]
+    assert {k: seg.reading(rows, k) for k in seg.BANDS} == {
+        "level2_300k": 0.118, "level1_300k": 0.408, "level0_10k": 0.173,
+        "level0_20k": 0.366, "enter_level1": 30000, "enter_level2": 140000,
+        "level3_envs_300k": 0}
+    # the recipe's flags, and the JAX CLI's defaults for the rest
+    import tetris_piclim_tpu.cli as jcli
+
+    seen = {}
+    monkeypatch.setattr(jcli, "cmd_curriculum", lambda args: seen.update(vars(args)) or 0)
+    jcli.main(["curriculum", *seg.RECIPE])
+    port = seg.parse_flags(seg.RECIPE)
+    keys = ("levels", "num_envs", "bank", "replay", "warmup", "steps", "chunk",
+            "threshold", "seed", "eval_episodes", "updates", "model", "dueling",
+            "joint", "bf16")
+    assert {k: getattr(port, k) for k in keys} == {k: seen[k] for k in keys}
+    assert (port.num_envs, port.steps, port.chunk, port.threshold) == (4096, 300000, 10000, 0.4)
+
+
+def _rows300(enter1=30000, enter2=140000, wr=None, last=300000, at3=0) -> list:
+    """Hand-made 10000-step rows: envs enter level 1 at ``enter1`` and
+    level 2 at ``enter2`` (None: never); ``wr`` sets win rates by (level,
+    step); ``at3`` envs sit at level 3 from 290k on."""
+    wr = wr or {}
+    rows = []
+    for step in range(10000, last + 1, 10000):
+        dist = [4096, 0, 0, 0]
+        if enter1 is not None and step >= enter1:
+            dist = [1, 4095, 0, 0]
+        if enter2 is not None and step >= enter2:
+            dist = [1, 64, 4031, 0]
+        if step >= 290000 and at3:
+            dist[2] -= at3
+            dist[3] = at3
+        rows.append({"step": step, "loss": 0.2, "level_distribution": dist,
+                     "win_rate_per_level": [wr.get((k, step), 0.3) for k in range(4)]})
+    return rows
+
+
+@pytest.mark.parametrize("name,seeds,holds", [
+    # the headline: level 2 at 300k, median of four inside / outside 0.05
+    ("level2_300k", [_rows300(wr={(2, 300000): v}) for v in (0.10, 0.12, 0.15, 0.30)], True),
+    ("level2_300k", [_rows300(wr={(2, 300000): v}) for v in (0.17, 0.18, 0.19, 0.05)], False),
+    ("level1_300k", [_rows300(wr={(1, 300000): v}) for v in (0.38, 0.40, 0.43, 0.45)], True),
+    ("level0_10k", [_rows300(wr={(0, 10000): v}) for v in (0.25, 0.26, 0.28, 0.30)], False),
+    ("level0_20k", [_rows300(wr={(0, 20000): v}) for v in (0.33, 0.35, 0.38, 0.40)], True),
+    # entries: within one chunk of 30000, within 20000 of 140000
+    ("enter_level1", [_rows300(enter1=s) for s in (20000, 20000, 30000, 40000)], True),
+    ("enter_level1", [_rows300(enter1=s) for s in (10000, 10000, 20000, 10000)], False),
+    ("enter_level2", [_rows300(enter2=s) for s in (110000, 120000, 130000, 150000)], True),
+    ("enter_level2", [_rows300(enter2=s) for s in (90000, 100000, 100000, 160000)], False),
+    # a seed that never enters counts as later than any step: two of four
+    # never entering put the median past the band
+    ("enter_level2", [_rows300(enter2=s) for s in (140000, 150000, None, None)], False),
+    ("enter_level2", [_rows300(enter2=s) for s in (130000, 140000, 150000, None)], True),
+    ("level3_envs_300k", [_rows300() for _ in range(4)], True),
+    ("level3_envs_300k", [_rows300(at3=a) for a in (0, 2, 3, 5)], False),
+])
+def test_300k_bands_on_made_up_rows(name, seeds, holds):
+    jax_rows = cc.read_log(seg.JAX_LOG.read_text())[0]
+    b = seg.bands(dict(enumerate(seeds)), jax_rows, 300000)
+    assert b[name]["holds"] is holds
+    assert b[name]["n"] == 4 and set(b[name]["seeds"]) == {0, 1, 2, 3}
+    finite = [v for v in b[name]["seeds"].values() if v is not None]
+    if len(finite) >= 2:
+        assert b[name]["sd"] == pytest.approx(float(np.std(finite, ddof=1)))
+    v = seg.verdict(b)
+    assert (name in v["bands_held"]) is holds and (name in v["bands_missed"]) is not holds
+
+
+def test_300k_bands_unread_until_a_seed_reaches_the_end():
+    jax_rows = cc.read_log(seg.JAX_LOG.read_text())[0]
+    b = seg.bands({0: _rows300(last=150000), 1: _rows300()}, jax_rows, 300000)
+    assert b["level2_300k"]["n"] == 1 and b["level2_300k"]["holds"] is False
+    b = seg.bands({0: _rows300(last=150000)}, jax_rows, 300000)
+    assert seg.verdict(b)["bands_unread"] == list(seg.BANDS)
+
+
+def test_fresh_seeds_read_apart_and_card_runs_labelled_apart(tmp_path, monkeypatch):
+    """``--apart 6:18`` reads seeds 6-17 of both arms on their own beside
+    every seed; the port's card runs are recorded and compared apart from
+    its CPU runs, and set against them on the seeds both ran."""
+    flags = ["--num-envs", "2048"]
+    promos = [24000, 26000, 28000, 30000, 26000, 28000]
+    recs = {}
+    for s in range(18):
+        recs[f"jax_s{s}"] = _rec("jax", s, _rows({}, promos[s % 6]), flags)
+        recs[f"repaired_cuda_s{s}"] = _rec("repaired", s, _rows({}, promos[s % 6] - 2000),
+                                           flags, device="cuda")
+    for s in range(6):
+        recs[f"repaired_s{s}"] = _rec("repaired", s, _rows({}, promos[s]), flags)
+    for name, r in recs.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(r))
+    res = cc.summarize(tmp_path, tmp_path / "none.json", apart=(6, 18))
+    got = [(c["port"], c["device"], c["seeds_read"], c["seeds"]["port"])
+           for c in res["comparisons"]]
+    assert got == [("repaired", "cpu", "all", list(range(6))),
+                   ("repaired", "cuda", "all", list(range(18))),
+                   ("repaired", "cuda", [6, 18], list(range(6, 18)))]
+    fresh = res["comparisons"][2]
+    assert fresh["seeds"]["jax"] == list(range(6, 18)) and fresh["rule"] == cc.RULE
+    assert fresh["readings"]["first_promotion"]["port_minus_jax"]["diff"] == -2000
+    (dev,) = res["device_checks"]
+    assert (dev["port"], dev["seeds_read"]) == ("repaired", list(range(6)))
+    assert dev["seeds"] == {"cpu": list(range(6)), "cuda": list(range(6))}
+    assert dev["readings"]["first_promotion"]["cuda_minus_cpu"]["diff"] == -2000
+    assert "recorded" not in dev["readings"]["first_promotion"]
+    # the tool names a card run's record apart from the CPU run of its seed
+    assert cc.record_stem("repaired", "cuda", 3) == "repaired_cuda_s3"
+    assert cc.record_stem("repaired", "cpu", 3) == "repaired_s3"
+
+    class Proc:
+        stderr = iter(["[ 2000] loss=0.1 wr=[0.5,0,0,0] dist=[32,0,0,0]\n"])
+
+        def wait(self, timeout=None):
+            return 0
+
+    monkeypatch.setattr(cc.subprocess, "Popen", lambda cmd, cwd, **kw: Proc())
+    monkeypatch.setattr(cc, "card", lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
+    out = tmp_path / "card"
+    out.mkdir()
+    cc.run_seeds(argparse.Namespace(tree=str(cc.ROOT), seeds=(3, 4), device="cuda",
+                                    timeout=10.0), flags, out)
+    rec = json.loads((out / "repaired_cuda_s3.json").read_text())
+    assert (rec["tree"], rec["device"], rec["card"]) == (
+        "repaired", "cuda", "NVIDIA H100 80GB HBM3, 700.00 W")

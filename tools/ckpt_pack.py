@@ -119,6 +119,12 @@ def pack(ckpt: str, out: str) -> dict:
             "bytes": raw_bytes, "packed_bytes": len(data)}
 
 
+def read_packed(src) -> dict:
+    """A packed file's contents in memory: name -> loaded ``.pt`` object
+    (tensors on the CPU), or the raw bytes of any other file."""
+    return _read(lzma.decompress(Path(src).read_bytes()))
+
+
 def unpack(src: str, ckpt: str) -> dict:
     data = Path(src).read_bytes()
     os.makedirs(ckpt, exist_ok=True)

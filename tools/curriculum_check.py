@@ -5,6 +5,7 @@ recorded 40k-step run.
         [--package torch|jax] [--matmul f32|bf16] [--out DIR] [--timeout S]
         [--device cuda|cpu] [-- CLI_FLAGS ...]
     python3 tools/curriculum_check.py --summarize-only --out DIR [--result FILE]
+        [--apart A:B]
 
 Runs ``python -m tetris_piclim_tpu_torch curriculum`` with the flags of
 ``results/curriculum_r1.log`` (``docs/RESULTS.md``, "Curriculum run"): levels
@@ -41,8 +42,10 @@ evaluation, rates, exit code, the number of runs this call started
 (``concurrent``), the card's name and power limit as
 ``nvidia-smi`` gives them, the host's load) goes to
 ``OUT/<label>_s<seed>.json``, its stderr to ``OUT/<label>_s<seed>.log`` and
-its stdout to ``OUT/<label>_s<seed>.out``. A run past ``--timeout`` is
-killed and keeps its rows so far (exit code 124).
+its stdout to ``OUT/<label>_s<seed>.out``; a port run on the card is
+``OUT/<label>_cuda_s<seed>.*``, so that the card's and the CPU's runs of
+one seed can share OUT. A run past ``--timeout`` is killed and keeps its
+rows so far (exit code 124).
 
 Then every record in OUT, of this call and of earlier ones, is read into
 one result (``--result``, default ``OUT/result.json``; ``--summarize-only``
@@ -76,7 +79,13 @@ two-sided t test per reading, Holm over the readings both arms reached
 mean and sd with its 95% interval, and the difference's 95% interval. It
 also places JAX's recorded run on the ``jax`` arm, as read and scaled to
 the recorded recipe's width by the port's own ratio between its float32
-runs of the recorded recipe on the card (``CARD_RESULT``) and these.
+runs of the recorded recipe on the card (``CARD_RESULT``) and these. The
+port arm is each port group of those flags, the card's runs and the
+CPU's apart (``device``); the rule is read on every seed (``seeds_read``
+"all") and, with ``--apart A:B``, again on the seeds A..B-1 of both arms
+alone (fresh seeds chosen before they ran). ``device_checks`` sets each
+port label's CPU runs against its card runs of the same flags by the same
+rule, on the seeds both ran: whether the device moves the distribution.
 Prints the result as one JSON line.
 """
 
@@ -323,6 +332,13 @@ def rate(rows: list[dict], stamps: list, num_envs: int) -> Optional[float]:
             / (stamps[len(rows) - 1] - stamps[0]))
 
 
+def record_stem(label: str, device: str, seed: int) -> str:
+    """A record's file name without its suffix: ``<label>_s<seed>``, and
+    ``<label>_cuda_s<seed>`` for a port run on the card, so that the card's
+    and the CPU's runs of one seed sit side by side in one OUT."""
+    return f"{label}_cuda_s{seed}" if device == "cuda" else f"{label}_s{seed}"
+
+
 def run_seeds(a: argparse.Namespace, extra: list, out: Path) -> None:
     """One ``cli curriculum`` process per seed, all at once; a record each."""
     tree = Path(a.tree).resolve()
@@ -337,15 +353,16 @@ def run_seeds(a: argparse.Namespace, extra: list, out: Path) -> None:
     t0 = time.perf_counter()
     for s in range(*a.seeds):
         cmd = command(s, device, extra, package, matmul, swap)
-        with open(out / f"{label}_s{s}.out", "w") as stdout:
+        stem = record_stem(label, device, s)
+        with open(out / f"{stem}.out", "w") as stdout:
             proc = subprocess.Popen(cmd, cwd=tree, env=env, stdout=stdout,
                                     stderr=subprocess.PIPE, text=True)
         stamps: list = []
         th = threading.Thread(target=stream, daemon=True,
-                              args=(proc, out / f"{label}_s{s}.log", stamps))
+                              args=(proc, out / f"{stem}.log", stamps))
         th.start()
-        runs[s] = (cmd, proc, th, stamps)
-    for s, (cmd, proc, th, stamps) in runs.items():
+        runs[s] = (cmd, stem, proc, th, stamps)
+    for s, (cmd, stem, proc, th, stamps) in runs.items():
         try:
             rc = proc.wait(timeout=max(1.0, a.timeout - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
@@ -354,8 +371,8 @@ def run_seeds(a: argparse.Namespace, extra: list, out: Path) -> None:
             rc = 124
         wall = time.perf_counter() - t0
         th.join()
-        rows, _ = read_log((out / f"{label}_s{s}.log").read_text())
-        _, final = read_log((out / f"{label}_s{s}.out").read_text())
+        rows, _ = read_log((out / f"{stem}.log").read_text())
+        _, final = read_log((out / f"{stem}.out").read_text())
         # the tree and the interpreter as the repo names them, not by path
         rec = {"tree": label, "tree_dir": os.path.relpath(tree, ROOT), "seed": s,
                "command": ["python", *cmd[1:]], "package": package,
@@ -365,7 +382,7 @@ def run_seeds(a: argparse.Namespace, extra: list, out: Path) -> None:
                "env_steps_per_s": rate(rows, stamps, num_envs),
                "wall_s": wall, "concurrent": len(runs), "card": smi,
                "host": host_load()}
-        (out / f"{label}_s{s}.json").write_text(json.dumps(rec) + "\n")
+        (out / f"{stem}.json").write_text(json.dumps(rec) + "\n")
         if rc:
             sys.stderr.write(f"{label} seed {s} exited with {rc}\n")
 
@@ -462,23 +479,39 @@ def run_readings(r: dict) -> dict:
     return compare_readings(r["rows"], last if done else None)
 
 
-def compare(jax_runs: list[dict], port_runs: list[dict], recorded: dict,
-            card_runs: list[dict]) -> dict:
+def arm_stats(values: dict, recorded: Optional[float]) -> dict:
+    """``seed_stats`` of one arm; JAX's z only where a recorded run is set
+    on it."""
+    stats = seed_stats(values, 0.0 if recorded is None else recorded)
+    if recorded is None:
+        stats.pop("jax_z", None)
+    return stats
+
+
+def compare(jax_runs: list[dict], port_runs: list[dict], recorded: Optional[dict],
+            card_runs: list[dict], names: tuple = ("jax", "port")) -> dict:
     """The ``jax`` runs against the port's by ``RULE``, and JAX's recorded
-    run (``recorded``, its readings) on the ``jax`` arm."""
-    arms = {"jax": {r["seed"]: run_readings(r) for r in jax_runs},
-            "port": {r["seed"]: run_readings(r) for r in port_runs}}
+    run (``recorded``, its readings) on the ``jax`` arm. With ``names`` and
+    no ``recorded``, any two arms by the same rule (the port's CPU runs
+    against its card runs)."""
+    first, second = names
+    arms = {first: {r["seed"]: run_readings(r) for r in jax_runs},
+            second: {r["seed"]: run_readings(r) for r in port_runs}}
     card = [run_readings(r) for r in card_runs]
     out, p = {}, {}
     for name in COMPARE:
         vals = {arm: {s: v[name] for s, v in runs.items() if v[name] is not None}
                 for arm, runs in arms.items()}
-        row = {arm: {"values": v, **seed_stats(v, recorded[name])} if v else {"n": 0}
+        row = {arm: {"values": v, **arm_stats(v, None if recorded is None else
+                                              recorded[name])} if v else {"n": 0}
                for arm, v in vals.items()}
-        x, y = (np.array(list(vals[a].values()), float) for a in ("jax", "port"))
+        x, y = (np.array(list(vals[a].values()), float) for a in names)
         if x.size >= 2 and y.size >= 2:
-            row["port_minus_jax"] = welch(x, y)
-            p[name] = row["port_minus_jax"]["p"]
+            row[f"{second}_minus_{first}"] = welch(x, y)
+            p[name] = row[f"{second}_minus_{first}"]["p"]
+        out[name] = row
+        if recorded is None:
+            continue
         c = [v[name] for v in card if v[name] is not None]
         scale = float(np.mean(c) / y.mean()) if c and y.size and y.mean() else None
         sd = row["jax"].get("sd")
@@ -488,7 +521,6 @@ def compare(jax_runs: list[dict], port_runs: list[dict], recorded: dict,
             "z_on_jax_arm_scaled": (None if scale is None or not sd else
                                     (recorded[name] - scale * row["jax"]["mean"])
                                     / (scale * sd))}
-        out[name] = row
     rejected = holm(p)
     for name in p:
         out[name]["rejected"] = rejected[name]
@@ -499,9 +531,19 @@ def compare(jax_runs: list[dict], port_runs: list[dict], recorded: dict,
                                  and not any(rejected.values()))}
 
 
-def comparisons(runs: list[dict], jax_rows: list[dict], card_runs: list[dict]) -> list:
+def in_range(runs: list[dict], seeds: Optional[tuple]) -> list[dict]:
+    """The runs whose seed lies in ``seeds`` (A, B): A <= seed < B; all of
+    them for None."""
+    return [r for r in runs if seeds is None or seeds[0] <= r["seed"] < seeds[1]]
+
+
+def comparisons(runs: list[dict], jax_rows: list[dict], card_runs: list[dict],
+                apart: Optional[tuple] = None) -> list:
     """The ``jax`` group against each port group of the same flags (a
-    shorter port run on the readings it reached)."""
+    shorter port run on the readings it reached), the port's runs on the
+    CPU and on the card alike (``device`` tells them apart): on every seed
+    (``seeds_read`` "all"), and with ``apart`` (A, B) again on the seeds
+    A..B-1 of both arms alone."""
     gs, by_key = groups(runs, jax_rows), keyed_runs(runs)
     recorded = compare_readings(jax_rows)
     out = []
@@ -513,15 +555,40 @@ def comparisons(runs: list[dict], jax_rows: list[dict], card_runs: list[dict]) -
             if h["label"] in ("jax", LABELS[1]) or not same_recipe(h["flags"], g["flags"]):
                 continue
             port_runs = by_key[(h["label"], h["device"], tuple(h["flags"]))]
-            out.append({"jax": "jax", "port": h["label"], "device": h["device"],
-                        "flags": h["flags"],
-                        **compare(jax_runs, port_runs, recorded, card_runs)})
+            for seeds in ([None, apart] if apart else [None]):
+                if not (in_range(jax_runs, seeds) and in_range(port_runs, seeds)):
+                    continue
+                out.append({"jax": "jax", "port": h["label"], "device": h["device"],
+                            "flags": h["flags"],
+                            "seeds_read": "all" if seeds is None else list(seeds),
+                            **compare(in_range(jax_runs, seeds), in_range(port_runs, seeds),
+                                      recorded, card_runs)})
     return out
 
 
-def summarize(out: Path, card_result: Path = CARD_RESULT) -> dict:
-    runs = [json.loads(p.read_text()) for label in LABELS
-            for p in sorted(out.glob(f"{label}_s[0-9]*.json"),
+def device_checks(runs: list[dict]) -> list:
+    """Each port label's CPU runs against its card runs of the same flags,
+    by ``RULE``, on the seeds both devices ran: whether the device moves
+    the distribution."""
+    keyed, out = keyed_runs(runs), []
+    for (label, device, flags), cpu in keyed.items():
+        if label in ("jax", LABELS[1]) or device != "cpu":
+            continue
+        for (other, dev, fl), cuda in keyed.items():
+            if other != label or dev != "cuda" or not same_recipe(list(fl), list(flags)):
+                continue
+            both = {r["seed"] for r in cpu} & {r["seed"] for r in cuda}
+            out.append({"port": label, "flags": list(flags), "seeds_read": sorted(both),
+                        **compare([r for r in cpu if r["seed"] in both],
+                                  [r for r in cuda if r["seed"] in both], None, [],
+                                  names=("cpu", "cuda"))})
+    return out
+
+
+def summarize(out: Path, card_result: Path = CARD_RESULT,
+              apart: Optional[tuple] = None) -> dict:
+    runs = [json.loads(p.read_text()) for label in LABELS for stem in ("", "_cuda")
+            for p in sorted(out.glob(f"{label}{stem}_s[0-9]*.json"),
                             key=lambda p: int(p.stem.rsplit("_s", 1)[1]))]
     jax_rows, jax_final = read_log(JAX_LOG.read_text())
     gs = groups(runs, jax_rows)
@@ -537,7 +604,10 @@ def summarize(out: Path, card_result: Path = CARD_RESULT) -> dict:
         card_runs = [r for r in json.loads(Path(card_result).read_text())["runs"]
                      if r["tree"] == LABELS[0]] if Path(card_result).exists() else []
         res["card_result"] = os.path.relpath(Path(card_result).resolve(), ROOT)
-        res["comparisons"] = comparisons(runs, jax_rows, card_runs)
+        res["comparisons"] = comparisons(runs, jax_rows, card_runs, apart)
+    checks = device_checks(runs)
+    if checks:
+        res["device_checks"] = checks
     return res
 
 
@@ -558,6 +628,9 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=str(ROOT / "build" / "curriculum"))
     p.add_argument("--result", default=None)
     p.add_argument("--summarize-only", action="store_true")
+    p.add_argument("--apart", default=None,
+                   type=lambda s: tuple(int(x) for x in s.split(":")),
+                   help="A:B: compare the seeds A..B-1 of both arms again on their own")
     a = p.parse_args(argv)
     if a.package == "jax" and a.matmul != "f32":
         raise SystemExit("--package jax runs the JAX package as it is, in float32")
@@ -574,7 +647,7 @@ def main(argv=None) -> int:
             sys.stderr.write(f"{out} already holds {len(earlier)} records, read into "
                              f"this result too: {' '.join(earlier)}\n")
         run_seeds(a, extra, out)
-    line = json.dumps(summarize(out))
+    line = json.dumps(summarize(out, apart=a.apart))
     Path(a.result or out / "result.json").write_text(line + "\n")
     print(line, flush=True)
     return 0
