@@ -128,9 +128,9 @@ def test_learning_check_against_an_earlier_record(tmp_path, capsys):
     got = res["against"]
     assert (got["rows_compared"], got["rows_equal"], got["equal_through"],
             got["first_apart"], got["window"]) == (60, 50, 50_000, 51_000, 25_000)
-    assert {int(k): v for k, v in got["gap"]["this"].items()} == pytest.approx(
+    assert {int(k): v for k, v in res["window"]["gap"].items()} == pytest.approx(
         {25_000: 0.01, 50_000: 0.01, 75_000: -0.02, 100_000: -0.02})
-    assert {int(k): v for k, v in got["gap"]["earlier"].items()} == pytest.approx(
+    assert {int(k): v for k, v in got["gap"].items()} == pytest.approx(
         {25_000: 0.01, 50_000: 0.01, 75_000: 0.03})
     assert res["last_step"] == 100_000 and res["band"]["training"][1]["inside"]
     assert res["card"] == "a card" and res["held_out"]["port_step"] is None

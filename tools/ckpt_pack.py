@@ -125,17 +125,23 @@ def read_packed(src) -> dict:
     return _read(lzma.decompress(Path(src).read_bytes()))
 
 
-def unpack(src: str, ckpt: str) -> dict:
-    data = Path(src).read_bytes()
+def write_files(files: dict, ckpt: str) -> int:
+    """Write a packed file's contents (:func:`read_packed`) as the
+    checkpoint directory ``ckpt``; returns the directory's bytes."""
     os.makedirs(ckpt, exist_ok=True)
-    for name, obj in _read(lzma.decompress(data)).items():
+    for name, obj in files.items():
         if name.endswith(".pt"):
             buf = io.BytesIO()
             torch.save(obj, buf)
             obj = buf.getvalue()
         (Path(ckpt) / name).write_bytes(obj)
-    return {"unpacked": ckpt, "from": src, "packed_bytes": len(data),
-            "bytes": sum(p.stat().st_size for p in Path(ckpt).iterdir())}
+    return sum(p.stat().st_size for p in Path(ckpt).iterdir())
+
+
+def unpack(src: str, ckpt: str) -> dict:
+    data = Path(src).read_bytes()
+    size = write_files(_read(lzma.decompress(data)), ckpt)
+    return {"unpacked": ckpt, "from": src, "packed_bytes": len(data), "bytes": size}
 
 
 def main(argv=None) -> int:

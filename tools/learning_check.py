@@ -2,10 +2,11 @@
 
     python3 tools/learning_check.py [--recipe l2|flagship|flagship100k]
         [--actor-fusion 8] [--resume CKPT] [--stop-at STEP] [--out DIR]
+        [-- CLI_TRAIN_FLAGS]
     python3 tools/learning_check.py --recipe flagship --holdout-only \
         --resume CKPT --out DIR
     python3 tools/learning_check.py --recipe flagship100k --summarize-only \
-        --out DIR [--against RECORD]
+        --out DIR [--against RECORD ...]
 
 Runs ``python -m tetris_piclim_tpu_torch train`` with the flags of a JAX
 run and reads the JAX run's training win rates beside the port's.
@@ -87,12 +88,24 @@ bits of an unbroken run. A segment that starts before an earlier
 segment's last row logs those steps again; ``overlaps`` in the result says
 whether each such row is the same in both.
 
+``--resume`` also takes a state packed by ``tools/ckpt_pack.py`` (a
+``.xz`` file), which is how a run is carried between calls whose return is
+too small for its raw checkpoints: the tool unpacks it into
+``OUT/ckpt/step_<n>`` and resumes from there. Every checkpoint a call
+leaves in OUT holds ``learning_check.json``, the run's recipe, seed and
+bank stream (``carry_record``), and the tool refuses a packed state whose
+record differs from the call's: its recipe, seed, bank stream and the
+flags after ``--``, which go to ``cli train`` after the recipe's (``--
+--channels 4,8`` at a test's width) and stand in ``train_flags``. They do
+not reach ``cli eval``, so ``--holdout-only`` refuses them.
+
 ``--against RECORD`` sets an earlier result JSON of this tool beside the
 run (under ``against``): the steps at which both have a row with the same
 training win rate and loss, the first step where they part, and each run's
-mean gap to JAX per ``--window`` steps. ``--summarize-only`` trains and
-evaluates nothing: it prints (and writes to ``OUT/result.json``) the run
-as OUT holds it.
+earlier record's mean gap to JAX per ``--window`` steps (the run's own
+stand under ``window``); a second ``--against`` and any later one go under
+``against_others``. ``--summarize-only`` trains and evaluates nothing: it
+prints (and writes to ``OUT/result.json``) the run as OUT holds it.
 
 A held-out reading also splits the forward family by where its rows came
 from: ``make_holdout_bank`` lays out the host DFS solver's rows first, then
@@ -180,9 +193,14 @@ _ROW = re.compile(r"^\[\s*(\d+)\] env_steps=(\S+) win_rate=(\S+) loss=(\S+) "
                   r"eps=(\S+) sps=(\S+)")
 _SEGMENT = re.compile(r"^segment_(\d+)\.log$")
 _HOLDOUT = re.compile(r"^holdout_(\d+)\.json$")
+# the run's record, kept inside each checkpoint this tool leaves
+CARRY = "learning_check.json"
 
 
 def parse(argv=None) -> argparse.Namespace:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cut = argv.index("--") if "--" in argv else len(argv)
+    argv, extra = argv[:cut], argv[cut + 1:]
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--recipe", choices=sorted(RECIPES), default="l2",
                    help="the JAX run to follow; it sets the defaults of the "
@@ -208,7 +226,8 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--actor-fusion", type=int, default=0, metavar="K")
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument("--resume", metavar="CKPT",
-                   help="a checkpoint this tool wrote (OUT/ckpt/final or step_<n>)")
+                   help="a checkpoint this tool wrote (OUT/ckpt/final or "
+                        "step_<n>), or one packed by tools/ckpt_pack.py (.xz)")
     p.add_argument("--continue-run", action="store_true",
                    help="with --resume: cli train --continue-run, so the call "
                         "goes on as one unbroken run would")
@@ -221,18 +240,21 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("--reference-eval",
                    help="JAX's cli eval JSON of the run's checkpoint, whose "
                         "held-out win rates join the train log's final_eval")
-    p.add_argument("--against", metavar="RECORD",
+    p.add_argument("--against", metavar="RECORD", action="append", default=[],
                    help="an earlier result JSON of this tool: the rows where "
                         "the two runs agree, and each one's mean gap to JAX "
-                        "per --window steps")
+                        "per --window steps (again for each further record)")
     p.add_argument("--window", type=int, default=25_000,
-                   help="steps per window of the mean gaps (--against)")
+                   help="steps per window of the mean gaps")
     p.add_argument("--band", type=float, default=0.05)
     p.add_argument("--band-steps",
                    help="chunk ends whose training win rates are held to the band")
     p.add_argument("--timeout", type=float, default=None,
                    help="seconds before the train process is stopped")
     a = p.parse_args(argv)
+    if extra and a.holdout_only:
+        p.error("flags after -- reach cli train only, not --holdout-only's cli eval")
+    a.extra = extra
     for k, v in RECIPES[a.recipe].items():
         if getattr(a, k, None) is None:
             setattr(a, k, v)
@@ -261,7 +283,7 @@ def train_command(a: argparse.Namespace, steps: int, ckpt_dir: str,
            "--log-every", str(a.log_every), "--eval-episodes", str(a.eval_episodes),
            "--seed", str(a.seed), "--actor-fusion", str(a.actor_fusion),
            "--checkpoint", ckpt_dir, "--checkpoint-every", str(a.checkpoint_every),
-           "--device", a.device, *a.model_flags, *a.flags]
+           "--device", a.device, *a.model_flags, *a.flags, *a.extra]
     if a.resume:
         cmd += ["--resume", a.resume]
         if a.continue_run:
@@ -442,8 +464,8 @@ def window_gaps(rows: list[dict], window: int) -> dict:
 def against(rows: list[dict], earlier: dict, window: int) -> dict:
     """This run's rows beside an earlier record's at the same steps: how
     many have the same training win rate and loss, the last step up to
-    which every row agrees, the first where they part, and each run's mean
-    gap to JAX per window."""
+    which every row agrees, the first where they part, and the earlier
+    record's mean gap to JAX per window."""
     theirs = {r["step"]: r for r in earlier["rows"]}
     both = [r for r in rows if r["step"] in theirs]
     same = [(r["port_win_rate"], r["port_loss"])
@@ -454,8 +476,7 @@ def against(rows: list[dict], earlier: dict, window: int) -> dict:
     return {"rows_compared": len(both), "rows_equal": sum(same),
             "equal_through": agree[-1] if agree else None,
             "first_apart": first_apart, "window": window,
-            "gap": {"this": window_gaps(rows, window),
-                    "earlier": window_gaps(earlier["rows"], window)}}
+            "gap": window_gaps(earlier["rows"], window)}
 
 
 def boundaries(curve: list[dict], starts: list[int], log_every: int) -> list[dict]:
@@ -472,14 +493,38 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def keep_newest_checkpoint(ckpt: Path) -> None:
+def keep_newest_checkpoint(ckpt: Path) -> Optional[Path]:
     """Leave one checkpoint in ``ckpt``: ``final`` if the run wrote it, else
-    the ``step_<n>`` of the highest n."""
+    the ``step_<n>`` of the highest n; returns it (None if there is none)."""
     steps = sorted(ckpt.glob("step_*"), key=lambda p: int(p.name.split("_")[1]))
     keep = ckpt / "final" if (ckpt / "final").exists() else (steps or [None])[-1]
     for old in steps:
         if old != keep:
             shutil.rmtree(old)
+    return keep
+
+
+def carry_record(a: argparse.Namespace) -> dict:
+    """What a packed state must have been made with to go on in this call."""
+    return {"recipe": a.recipe, "seed": a.seed, "bank_stream": BANK_STREAM,
+            "extra": a.extra}
+
+
+def unpack_carry(a: argparse.Namespace, out: Path) -> str:
+    """Unpack the packed state ``a.resume`` into ``OUT/ckpt/step_<n>``,
+    refusing one whose ``CARRY`` record is not this call's."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from ckpt_pack import read_packed, write_files
+
+    files = read_packed(a.resume)
+    rec = json.loads(files.get(CARRY, b"{}"))
+    apart = {k: {"packed": rec.get(k), "call": v}
+             for k, v in carry_record(a).items() if rec.get(k) != v}
+    if apart:
+        raise SystemExit(f"{a.resume} is not a state of this run: {json.dumps(apart)}")
+    dst = out / "ckpt" / f"step_{int(files['state.pt']['global_step'])}"
+    write_files(files, str(dst))
+    return str(dst)
 
 
 def run_logged(cmd: list, log: Path, timeout) -> tuple[int, str]:
@@ -629,7 +674,8 @@ def summarize(a: argparse.Namespace, out: Path) -> dict:
            "actor_fusion": a.actor_fusion, "seed": a.seed,
            "bank_stream": BANK_STREAM,
            "task": f"L={a.lines},M={a.moves}", "num_envs": a.num_envs,
-           "bank": a.bank, "train_flags": a.model_flags + a.flags, "steps": a.steps,
+           "bank": a.bank, "train_flags": a.model_flags + a.flags + a.extra,
+           "steps": a.steps,
            "last_step": curve[-1]["step"] if curve else 0,
            "total_env_steps": a.steps * a.num_envs,
            "eval_episodes": a.eval_episodes,
@@ -647,10 +693,14 @@ def summarize(a: argparse.Namespace, out: Path) -> dict:
                                    a.log_every)
     res["overlaps"] = overlaps(out)
     res["held_out_readings"] = [json.loads(p.read_text()) for _, p in readings]
-    if a.against:
-        res["against"] = {"record": os.path.relpath(a.against, ROOT),
-                          **against(res["rows"], json.loads(Path(a.against).read_text()),
-                                    a.window)}
+    res["window"] = {"width": a.window, "gap": window_gaps(res["rows"], a.window)}
+    blocks = [{"record": os.path.relpath(path, ROOT),
+               **against(res["rows"], json.loads(Path(path).read_text()), a.window)}
+              for path in a.against]
+    if blocks:
+        res["against"] = blocks[0]
+    if blocks[1:]:
+        res["against_others"] = blocks[1:]
     return res
 
 
@@ -667,6 +717,8 @@ def main(argv=None) -> int:
     if a.summarize_only:
         write_result(a, out)
         return 0
+    if a.resume and a.resume.endswith(".xz"):
+        a.resume = unpack_carry(a, out)
     start = resume_step(a.resume) if a.resume else 0
     t0 = time.perf_counter()
     if a.holdout_only:
@@ -682,7 +734,9 @@ def main(argv=None) -> int:
         final = str(out / f"holdout_{stop}") if stop == a.steps else None
         rc, stdout = run_logged(train_command(a, stop - start, str(out / "ckpt"), final),
                                 out / f"segment_{start}.log", a.timeout)
-        keep_newest_checkpoint(out / "ckpt")
+        kept = keep_newest_checkpoint(out / "ckpt")
+        if kept is not None:
+            (kept / CARRY).write_text(json.dumps(carry_record(a)) + "\n")
     if rc not in (0, 124):
         return rc
     card_name = card() if a.device == "cuda" else None
