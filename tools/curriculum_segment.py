@@ -8,6 +8,10 @@ port, split over calls by carrying the trainer's whole state between them.
     python3 tools/curriculum_segment.py proof --out DIR [--device cuda|cpu] [--timeout S]
         [-- FLAGS]
     python3 tools/curriculum_segment.py summarize --out DIR [--result FILE]
+    python3 tools/curriculum_segment.py jax --seeds 0:8 [--concurrent N] --out DIR
+        [--timeout S] [-- FLAGS]
+    python3 tools/curriculum_segment.py compare --out DIR --jax DIR
+        [--port-result FILE ...] [--result FILE]
 
 ``segment`` runs the port's own ``cli curriculum`` in this process with the
 given flags, from step 0 or from the state ``--restore`` names (a directory
@@ -66,6 +70,25 @@ sd (``tools/seed_spread.py``'s ``seed_stats``) and each seed's z:
 The result (``--result``, default ``OUT/result.json``) also holds JAX's rows
 and final line, every seed's rows, each segment's rate and wall time, and
 ``OUT/proof.json`` where it exists. Prints it as one JSON line.
+
+``jax`` is the jax arm: the JAX package's own CLI, ``python -m
+tetris_piclim_tpu curriculum`` with the recipe's flags, ``--seed S`` and the
+flags after ``--``, on the CPU (``JAX_PLATFORMS=cpu``), each seed unbroken
+to the end, ``--concurrent`` at a time. Each run's record (rows, final
+JSON, exit code, its env-steps/s on this CPU from the rows' arrival times,
+wall time, the host's load) goes to ``OUT/jax_s<S>.json`` with its stderr
+and stdout beside it; a run past ``--timeout`` is killed and keeps its rows
+(exit code 124).
+
+``compare`` sets that arm (``--jax DIR``) against the port arm (the seeds of
+each ``--port-result``, an earlier ``summarize`` result, and the segments in
+``--out``) by ``RULE_300K``, fixed before any jax run of the recipe was
+read: six readings per run (``readings_300k``), Welch's two-sided t test per
+reading, Holm over the six at ``ALPHA``. The result holds both arms' runs
+and readings, each arm's mean and sd with their 95% intervals, the
+difference's 95% interval, the verdict, JAX's recorded TPU run's readings
+and their z on each arm, the runs short of 300000 with their exit codes,
+and the bands read on each arm.
 """
 
 from __future__ import annotations
@@ -84,7 +107,7 @@ from typing import Optional
 
 import numpy as np
 from ckpt_pack import pack, read_packed, same
-from curriculum_check import parse_row, rate, read_log, stream
+from curriculum_check import ALPHA, holm, parse_row, rate, read_log, run_env, stream, welch
 from learning_check import card, host_load
 from seed_spread import seed_stats
 
@@ -104,6 +127,27 @@ BANDS = {
     "enter_level2": ("entry", 2, None, 20_000),
     "level3_envs_300k": ("envs", 3, 300_000, 0),
 }
+# the readings RULE_300K compares, one value per run
+READINGS_300K = ("level0_10k", "level0_20k", "enter_level1", "enter_level2",
+                 "level1_after_entry", "level2_300k")
+AFTER_ENTRY = 40_000
+RULE_300K = (
+    "Six readings per run of the recipe: level 0's training win rate at 10k and at 20k; "
+    "the first entry into level 1 and into level 2 (the first row with an env at that "
+    "level or above); level 1's training win rate 40000 steps after the run's own entry "
+    "into level 1; level 2's training win rate at 300k. A win rate is read only from a "
+    "row with an env at its level. A run that reached 300k and never entered a level "
+    "enters it one chunk past its last row; a run cut short counts only for the "
+    "readings it reached. Level 1 at 300k is not compared: it is read on the 3-64 envs "
+    "that promotion leaves behind, so it measures promotion, not learning. Welch's "
+    "two-sided t test per reading between the jax arm (the JAX package's own CLI on the "
+    "CPU, seeds 0-7) and the port arm (cli curriculum on the H100, seeds 0-7); Holm "
+    "over the six readings at alpha 0.01. No reading differs: one distribution on this "
+    "recipe, A5 closes, and JAX's recorded TPU run is read as a draw from the jax "
+    "arm's spread (its z there per reading). A reading differs: C-5 opens with the "
+    "readings, both arms' means and sds and the difference's 95% interval, and the "
+    "first step it can be read at; nothing is tuned after an arm is read.")
+STEPS = int(RECIPE[RECIPE.index("--steps") + 1])
 PROOF_CHUNK, PROOF_CHUNKS = 1000, (2, 2)
 STATE = "state.pt"
 _STEP = re.compile(r"^\[\s*(\d+)\]")
@@ -328,6 +372,59 @@ def run_seeds(seeds: range, stop_at: int, out: Path, device: str, timeout: float
     return recs
 
 
+# -- the jax arm: the JAX package's own CLI on the CPU, unbroken ---------------
+
+def jax_command(seed: int, extra: list) -> list:
+    return [sys.executable, "-m", "tetris_piclim_tpu", "curriculum", *RECIPE,
+            "--seed", str(seed), *extra]
+
+
+def run_jax_seed(seed: int, out: Path, timeout: float, extra: list,
+                 concurrent: int) -> dict:
+    """One unbroken JAX run of the recipe on the CPU; its record goes to
+    ``OUT/jax_s<seed>.json`` (stderr ``.log``, stdout ``.out``). A run past
+    ``timeout`` is killed and keeps its rows (exit code 124)."""
+    cmd, stem = jax_command(seed, extra), out / f"jax_s{seed}"
+    t0 = time.perf_counter()
+    with open(stem.with_suffix(".out"), "w") as stdout:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=run_env(ROOT, "jax"), stdout=stdout,
+                                stderr=subprocess.PIPE, text=True)
+    stamps: list = []
+    th = threading.Thread(target=stream, daemon=True,
+                          args=(proc, stem.with_suffix(".log"), stamps))
+    th.start()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = 124
+    wall = time.perf_counter() - t0
+    th.join()
+    rows, _ = read_log(stem.with_suffix(".log").read_text())
+    _, final = read_log(stem.with_suffix(".out").read_text())
+    flags = [*RECIPE, *extra]
+    rec = {"package": "jax", "seed": seed, "command": ["python", *cmd[1:]], "flags": flags,
+           "device": "cpu", "rc": rc, "rows": rows, "final": final,
+           "cpu_env_steps_per_s": rate(rows, stamps, parse_flags(flags).num_envs),
+           "wall_s": wall, "concurrent": concurrent, "host": host_load()}
+    stem.with_suffix(".json").write_text(json.dumps(rec) + "\n")
+    if rc:
+        sys.stderr.write(f"jax seed {seed} exited with {rc}\n")
+    return rec
+
+
+def run_jax(seeds: range, concurrent: int, out: Path, timeout: float,
+            extra: list) -> list[dict]:
+    """The jax arm: each seed of ``seeds`` unbroken, ``concurrent`` at a
+    time; each run is given ``timeout`` seconds from its own start."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=concurrent) as pool:
+        return list(pool.map(lambda s: run_jax_seed(s, out, timeout, extra, concurrent),
+                             seeds))
+
+
 # -- the proof: two segments against one unbroken run --------------------------
 
 def proof(out: Path, device: str, extra: list, seed: int = 0,
@@ -463,8 +560,7 @@ def seed_runs(out: Path) -> dict:
 def summarize(out: Path) -> dict:
     jax_rows, jax_final = read_log(JAX_LOG.read_text())
     runs = seed_runs(out)
-    steps = int(RECIPE[RECIPE.index("--steps") + 1])
-    b = bands({s: r["rows"] for s, r in runs.items()}, jax_rows, steps)
+    b = bands({s: r["rows"] for s, r in runs.items()}, jax_rows, STEPS)
     proof_file = out / "proof.json"
     return {"tool": "curriculum_segment", "recipe": RECIPE,
             "jax": {"log": str(JAX_LOG.relative_to(ROOT)), "rows": jax_rows,
@@ -482,12 +578,133 @@ def summarize(out: Path) -> dict:
                       for s, r in runs.items()}}
 
 
+# -- the jax arm against the port arm, by RULE_300K ----------------------------
+
+def readings_300k(rows: list[dict], ended: bool) -> dict:
+    """A run's six readings for ``RULE_300K`` (None where it has none);
+    ``ended``: the run reached the recipe's last step."""
+    by_step = {r["step"]: r for r in rows}
+
+    def win_rate(step, level):
+        r = by_step.get(step)
+        return (r["win_rate_per_level"][level]
+                if r is not None and r["level_distribution"][level] else None)
+
+    def entry(level):
+        at = first_entry(rows, level)
+        if at is None and ended and len(rows) > 1:
+            at = rows[-1]["step"] + rows[-1]["step"] - rows[-2]["step"]
+        return at
+
+    e1 = entry(1)
+    return {"level0_10k": win_rate(10_000, 0), "level0_20k": win_rate(20_000, 0),
+            "enter_level1": e1, "enter_level2": entry(2),
+            "level1_after_entry": None if e1 is None else win_rate(e1 + AFTER_ENTRY, 1),
+            "level2_300k": win_rate(STEPS, 2)}
+
+
+def arm_stats(values: dict, recorded) -> dict:
+    """``seed_stats`` of one arm with the mean's 95% interval, and JAX's
+    recorded run's z on it (``recorded_z``)."""
+    from scipy import stats
+
+    out = seed_stats(values, 0.0 if recorded is None else recorded)
+    z = out.pop("jax_z", None)
+    if out["n"] >= 2:
+        half = float(stats.t.ppf(0.975, out["n"] - 1)) * out["sd"] / np.sqrt(out["n"])
+        out["mean_95"] = [out["mean"] - half, out["mean"] + half]
+        out["recorded_z"] = None if recorded is None else z
+    return out
+
+
+def compare_arms(jax: dict, port: dict, recorded: dict) -> dict:
+    """``RULE_300K`` on two arms (seed -> readings), with JAX's recorded
+    run's readings (``recorded``) placed on each."""
+    out, p = {}, {}
+    for name in READINGS_300K:
+        vals = {arm: {s: v[name] for s, v in runs.items() if v[name] is not None}
+                for arm, runs in (("jax", jax), ("port", port))}
+        row = {arm: {"values": v, **arm_stats(v, recorded[name])} if v else {"n": 0}
+               for arm, v in vals.items()}
+        row["recorded"] = recorded[name]
+        x, y = (np.array(list(vals[a].values()), float) for a in ("jax", "port"))
+        if x.size >= 2 and y.size >= 2:
+            row["port_minus_jax"] = welch(x, y)
+            p[name] = row["port_minus_jax"]["p"]
+        out[name] = row
+    rejected = holm(p)
+    for name in p:
+        out[name]["rejected"] = rejected[name]
+    differs = [k for k, v in rejected.items() if v]
+    return {"rule": RULE_300K, "alpha": ALPHA, "readings": out, "tested": list(p),
+            "differs": differs,
+            "one_distribution": len(p) == len(READINGS_300K) and not differs}
+
+
+def jax_runs(jax_dir: Path) -> dict:
+    """seed -> the jax arm's record in ``jax_dir`` (``jax_s<S>.json``)."""
+    recs = (json.loads(p.read_text()) for p in jax_dir.glob("jax_s[0-9]*.json"))
+    return {r["seed"]: r for r in sorted(recs, key=lambda r: r["seed"])}
+
+
+def port_runs(out: Path, results: list) -> dict:
+    """seed -> the port arm's joined run: the seeds of each earlier
+    ``summarize`` result in ``results`` and the segments in ``out``."""
+    runs = {}
+    for res in results:
+        for s, r in json.loads(Path(res).read_text())["seeds"].items():
+            runs[int(s)] = {**r, "source": os.path.relpath(Path(res).resolve(), ROOT)}
+    for s, r in seed_runs(out).items():
+        if s in runs:
+            raise SystemExit(f"seed {s} is both in {runs[s]['source']} and in {out}")
+        runs[s] = {"reached": r["reached"], "rows": r["rows"], "final": r["final"],
+                   "segments": [{k: g[k] for k in (
+                       "start", "stop", "rc", "env_steps_per_s", "wall_s", "concurrent",
+                       "card", "host", "state_bytes", "state_packed_bytes")}
+                       for g in r["segments"]],
+                   "source": os.path.relpath(out.resolve(), ROOT)}
+    return dict(sorted(runs.items()))
+
+
+def spread(out: Path, jax_dir: Path, results: list) -> dict:
+    """The jax arm in ``jax_dir`` against the port arm (``port_runs``) by
+    ``RULE_300K``, with the bands read on each arm."""
+    jax_rows, jax_final = read_log(JAX_LOG.read_text())
+    jr, pr = jax_runs(jax_dir), port_runs(out, results)
+    for r in jr.values():
+        r["reached"] = r["rows"][-1]["step"] if r["rows"] else 0
+    jax_read = {s: readings_300k(r["rows"], r["rc"] == 0 and r["reached"] >= STEPS)
+                for s, r in jr.items()}
+    port_read = {s: readings_300k(r["rows"], r["reached"] >= STEPS) for s, r in pr.items()}
+    recorded = readings_300k(jax_rows, True)
+    res = compare_arms(jax_read, port_read, recorded)
+    short = ([{"arm": "jax", "seed": s, "reached": r["reached"], "rc": r["rc"]}
+              for s, r in jr.items() if r["rc"] or r["reached"] < STEPS]
+             + [{"arm": "port", "seed": s, "reached": r["reached"],
+                 "rc": [g["rc"] for g in r["segments"]]}
+                for s, r in pr.items() if r["reached"] < STEPS])
+    return {"tool": "curriculum_segment", "mode": "compare", "recipe": RECIPE, **res,
+            "jax_recorded": {"log": str(JAX_LOG.relative_to(ROOT)), "final": jax_final,
+                             "readings": recorded, "device": "TPU"},
+            "short_runs": short,
+            "bands": {"port": bands({s: r["rows"] for s, r in pr.items()}, jax_rows, STEPS),
+                      "jax": bands({s: r["rows"] for s, r in jr.items()}, jax_rows, STEPS)},
+            "arms": {
+                "jax": {"device": "cpu", "package": "tetris_piclim_tpu",
+                        "seeds": {s: {**r, "readings": jax_read[s]} for s, r in jr.items()}},
+                "port": {"device": "cuda", "package": "tetris_piclim_tpu_torch",
+                         "cards": sorted({g["card"] for r in pr.values()
+                                          for g in r["segments"] if g["card"]}),
+                         "seeds": {s: {**r, "readings": port_read[s]}
+                                   for s, r in pr.items()}}}}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     extra = argv[argv.index("--") + 1:] if "--" in argv else []
     argv = argv[:argv.index("--")] if "--" in argv else argv
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=["segment", "run", "proof", "summarize"])
+    p.add_argument("mode", choices=["segment", "run", "proof", "summarize", "jax", "compare"])
     p.add_argument("--restore", default=None)
     p.add_argument("--stop-at", type=int, default=None)
     p.add_argument("--save", default=None)
@@ -496,6 +713,11 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=3000.0)
     p.add_argument("--out", default=str(ROOT / "build" / "curriculum_to_L5"))
     p.add_argument("--result", default=None)
+    p.add_argument("--concurrent", type=int, default=4, help="jax: runs at a time")
+    p.add_argument("--jax", default=str(ROOT / "build" / "curriculum_to_L5_jax"),
+                   help="compare: the jax arm's records")
+    p.add_argument("--port-result", action="append", default=[],
+                   help="compare: an earlier summarize result whose seeds join the port arm")
     a = p.parse_args(argv)
     if a.mode == "segment":
         return run_segment(extra, a.restore, a.stop_at, a.save)
@@ -505,12 +727,16 @@ def main(argv=None) -> int:
         if a.stop_at is None:
             raise SystemExit("run needs --stop-at")
         run_seeds(a.seeds, a.stop_at, out, a.device, a.timeout, extra)
+    elif a.mode == "jax":
+        run_jax(a.seeds, a.concurrent, out, a.timeout, extra)
+        return 0
     elif a.mode == "proof":
         res = proof(out, a.device, extra, timeout=a.timeout)
         print(json.dumps({k: v for k, v in res.items() if not k.startswith("rows")}),
               flush=True)
         return 0 if res["equal"] else 1
-    line = json.dumps(summarize(out))
+    res = spread(out, Path(a.jax), a.port_result) if a.mode == "compare" else summarize(out)
+    line = json.dumps(res)
     Path(a.result or out / "result.json").write_text(line + "\n")
     print(line, flush=True)
     return 0
