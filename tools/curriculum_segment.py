@@ -150,6 +150,9 @@ RULE_300K = (
 STEPS = int(RECIPE[RECIPE.index("--steps") + 1])
 PROOF_CHUNK, PROOF_CHUNKS = 1000, (2, 2)
 STATE = "state.pt"
+# what a result keeps of each segment's record
+SEGMENT_KEYS = ("start", "stop", "rc", "env_steps_per_s", "wall_s", "concurrent", "card",
+                "host", "state_bytes", "state_packed_bytes")
 _STEP = re.compile(r"^\[\s*(\d+)\]")
 
 
@@ -571,10 +574,8 @@ def summarize(out: Path) -> dict:
             "cards": sorted({g["card"] for r in runs.values() for g in r["segments"]
                              if g["card"]}),
             "seeds": {s: {"reached": r["reached"], "rows": r["rows"], "final": r["final"],
-                          "segments": [{k: g[k] for k in (
-                              "start", "stop", "rc", "env_steps_per_s", "wall_s",
-                              "concurrent", "card", "host", "state_bytes",
-                              "state_packed_bytes")} for g in r["segments"]]}
+                          "segments": [{k: g[k] for k in SEGMENT_KEYS}
+                                       for g in r["segments"]]}
                       for s, r in runs.items()}}
 
 
@@ -603,17 +604,16 @@ def readings_300k(rows: list[dict], ended: bool) -> dict:
             "level2_300k": win_rate(STEPS, 2)}
 
 
-def arm_stats(values: dict, recorded) -> dict:
+def arm_stats(values: dict, recorded: float) -> dict:
     """``seed_stats`` of one arm with the mean's 95% interval, and JAX's
     recorded run's z on it (``recorded_z``)."""
     from scipy import stats
 
-    out = seed_stats(values, 0.0 if recorded is None else recorded)
-    z = out.pop("jax_z", None)
+    out = seed_stats(values, recorded)
     if out["n"] >= 2:
         half = float(stats.t.ppf(0.975, out["n"] - 1)) * out["sd"] / np.sqrt(out["n"])
         out["mean_95"] = [out["mean"] - half, out["mean"] + half]
-        out["recorded_z"] = None if recorded is None else z
+        out["recorded_z"] = out.pop("jax_z")
     return out
 
 
@@ -658,10 +658,7 @@ def port_runs(out: Path, results: list) -> dict:
         if s in runs:
             raise SystemExit(f"seed {s} is both in {runs[s]['source']} and in {out}")
         runs[s] = {"reached": r["reached"], "rows": r["rows"], "final": r["final"],
-                   "segments": [{k: g[k] for k in (
-                       "start", "stop", "rc", "env_steps_per_s", "wall_s", "concurrent",
-                       "card", "host", "state_bytes", "state_packed_bytes")}
-                       for g in r["segments"]],
+                   "segments": [{k: g[k] for k in SEGMENT_KEYS} for g in r["segments"]],
                    "source": os.path.relpath(out.resolve(), ROOT)}
     return dict(sorted(runs.items()))
 
